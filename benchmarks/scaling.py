@@ -1,17 +1,16 @@
 """Scaling-efficiency harness: rays/s vs mesh size.
 
-BASELINE target: >= 85% rays/s scaling efficiency at 2 hosts.  On a real
-multi-chip/multi-host slice this measures the ray-sharded training step at
-every mesh width; on a CPU host it runs against the 8-virtual-device fake
-mesh (same code path, demonstrates the harness).
+On a multi-GPU host this measures the ray-sharded training step (the
+``auto`` backend: the mega kernel path on a GPU) at every mesh width;
+``--fake`` runs it against an 8-virtual-device CPU mesh (same code path,
+demonstrates the harness).  Each rep ends in ``jax.block_until_ready``.
 
-    python benchmarks/scaling.py [--devices 1 2 4 8] [--fake] \
-        [--json SCALING_r3.json]
+    python benchmarks/scaling.py [--devices 1 2 4] [--fake] [--json PATH]
 
 The JSON record is machine-readable for the BASELINE gate; when measured
 on virtual CPU devices it carries ``"fake_mesh": true`` — those numbers
 validate the code path only (virtual devices share the host's cores).
-The real-slice procedure is docs/SCALING_RUNBOOK.md.
+The multi-GPU procedure is docs/SCALING_RUNBOOK.md.
 """
 
 import argparse
@@ -53,19 +52,21 @@ def main():
     if fake:
         print("NOTE: virtual CPU devices share the same host cores — "
               "efficiency numbers here only validate the code path, not "
-              "scaling; run on a real slice for the BASELINE metric "
-              "(docs/SCALING_RUNBOOK.md).")
+              "scaling (docs/SCALING_RUNBOOK.md).")
     n_avail = len(jax.devices())
     sizes = args.devices or [n for n in (1, 2, 4, 8, 16, 32) if n <= n_avail]
     scene = load_scene(os.path.join(os.path.dirname(__file__), "..",
                                     "scenes", "config3.txt"))
     plan, tables = compile_scene(scene)
 
+    from raymarching_tpu.api import resolve_backend
+    from raymarching_tpu.utils.timing import device_record
+    backend = resolve_backend("auto")
     record = {
         "metric": "ray_sharded_train_step_scaling",
         "fake_mesh": bool(fake),
-        "platform": jax.devices()[0].platform,
-        "device": str(jax.devices()[0]),
+        "backend": backend,
+        "device": device_record(),
         "processes": int(jax.process_count()),
         "scene": "config3.txt",
         "image": [args.width, args.height],
@@ -79,15 +80,13 @@ def main():
         mesh = make_mesh(n)
         target = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
         step = jax.jit(lambda t: train_step(plan, t, target, cfg, mesh,
-                                            lr=0.0))
-        loss, _ = step(tables)
-        float(loss)                         # compile + sync
+                                            lr=0.0, backend=backend))
+        jax.block_until_ready(step(tables))  # compile + warm
         ts, cs = [], []
         for _ in range(max(args.reps, 1)):
             c0 = time.process_time()
             t0 = time.perf_counter()
-            loss, _ = step(tables)
-            float(loss)
+            jax.block_until_ready(step(tables))
             ts.append(time.perf_counter() - t0)
             cs.append(time.process_time() - c0)
         dt = float(np.median(ts))
@@ -104,7 +103,8 @@ def main():
             "host_cores_utilized": round(cpu_s / dt, 2),
         })
         print(f"devices={n:3d}: {dt:7.3f}s  {rate:8.3f} Mrays/s "
-              f"efficiency={eff:6.1f}%  util={cpu_s / dt:4.2f} cores")
+              f"efficiency={eff:6.1f}%  util={cpu_s / dt:4.2f} cores  "
+              f"[{record['device'].get('card', record['device']['kind'])}]")
 
     two = next((w for w in record["widths"] if w["devices"] == 2), None)
     if two is not None:
@@ -113,15 +113,15 @@ def main():
         record["meets_target"] = (bool(two["efficiency_pct"] >= 85.0)
                                   if not fake else None)
     if fake:
-        # r4 verdict #8: the fake-mesh curve "degrades" past the host's
-        # physical core count — diagnose it IN the artifact.  Total CPU
+        # The fake-mesh curve "degrades" past the host's physical core
+        # count — diagnose it IN the artifact.  Total CPU
         # seconds are ~constant across widths (the work is fixed); wall
         # time only tracks how completely the host cores get saturated
         # (n=1 leaves the XLA CPU intra-op pool under-subscribed; wider
         # meshes close the gap until util == physical cores, after which
         # extra virtual devices add only scheduler noise).  So fake-mesh
-        # "efficiency" measures HOST-CORE SATURATION, not ICI scaling —
-        # a real slice runs each width on its own chips and cores
+        # "efficiency" measures HOST-CORE SATURATION, not device scaling —
+        # a multi-GPU host runs each width on its own cards
         # (docs/SCALING_RUNBOOK.md).
         host_cores = os.cpu_count()    # LOGICAL CPUs (SMT counts double)
         cpu_tot = [w["cpu_seconds"] for w in record["widths"]]
@@ -135,7 +135,7 @@ def main():
                 "across widths while wall time tracks core saturation "
                 "(see host_cores_utilized) — widths past the core count "
                 "cannot improve and jitter +/- a few % explains the "
-                "8-device knee.  Not a statement about real-ICI scaling."),
+                "8-device knee.  Not a statement about device scaling."),
         }
     if args.json:
         with open(args.json, "w") as f:

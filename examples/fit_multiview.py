@@ -57,6 +57,8 @@ def main():
                          "through the differentiable look-at + the "
                          "origin/direction cotangents of render_rays)")
     args = ap.parse_args()
+    from raymarching_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")

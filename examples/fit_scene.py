@@ -25,6 +25,8 @@ def main():
     ap.add_argument("--out", default="/tmp/fit")
     ap.add_argument("--backend", default=None)
     args = ap.parse_args()
+    from raymarching_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
 
     from raymarching_tpu import RenderConfig, compile_scene, load_scene
     from raymarching_tpu.api import render_tables, resolve_backend

@@ -25,6 +25,8 @@ def main():
     ap.add_argument("--height", type=int, default=384)
     ap.add_argument("--backend", default="auto")
     args = ap.parse_args()
+    from raymarching_tpu.utils.cache import setup_compile_cache
+    setup_compile_cache()
 
     import jax
 

@@ -3,7 +3,7 @@
 // The reference keeps its host runtime in C++: the scene text parser
 // (scene.cpp:92-190), the CSG generators (body.cpp:113-170), and the
 // tree -> device-table flattener (render.cpp:246-366).  This library is the
-// TPU-native equivalent: it parses the identical objects.txt grammar and
+// JAX renderer's equivalent: it parses the identical objects.txt grammar and
 // emits the framework's flat struct-of-arrays tables directly in the
 // two-level kernel normal form (group id + fold sign per primitive) —
 // no pointer tree, no device-side interpreter.  Exposed via a minimal

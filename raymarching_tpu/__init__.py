@@ -1,4 +1,4 @@
-"""raymarching_tpu: a TPU-native differentiable sphere-tracing renderer.
+"""raymarching_tpu: a differentiable sphere-tracing renderer on JAX/Pallas.
 
 Brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 CPU/OpenGL renderer (RevelcoS/Raymarching): CSG scenes (sphere/box/cross +
@@ -6,8 +6,9 @@ union/complement/intersection/difference lists, Menger sponge and Death Star
 generators), Lambertian multi-light shading with hard shadow rays, SSAA
 supersampling, and the exact ``scene/objects.txt`` grammar — plus what the
 reference never had: gradients to every scene parameter through the march
-(implicit-function differentiation), fused Pallas TPU kernels, and ray-
-sharded multi-chip execution over a JAX mesh.
+(implicit-function differentiation), fused Pallas kernels compiled for
+NVIDIA GPUs through Triton, and ray-sharded multi-device execution over a
+JAX mesh.
 """
 
 from .config import REFERENCE_CONFIG, RenderConfig

@@ -5,7 +5,7 @@ Backends (RenderConfig.backend or the ``backend=`` argument):
     The allclose ground truth (the analogue of the reference CPU path).
   * ``"jnp"``    — fast path on XLA: while-loop forward march wrapped in the
     implicit-function custom VJP (ops.march_op).
-  * ``"pallas"`` — fused Pallas TPU kernels for the march, shadow rays
+  * ``"pallas"`` — fused Pallas kernels for the march, shadow rays
     (with exact early termination at the light), surface color lookup, and
     finite-difference normals; IFT backward, with normals backpropagated by
     rematerializing the jnp FD formula.
@@ -16,7 +16,12 @@ Backends (RenderConfig.backend or the ``backend=`` argument):
     with culling; deeper trees compile the generic post-order evaluator
     (ops.pallas_march.kernel_key) — every grammar-expressible scene runs
     on the kernel path.
-  * ``"auto"``   — mega on TPU, jnp elsewhere.
+  * ``"auto"``   — mega on a GPU, jnp on the CPU; any other platform
+    raises.
+
+Every kernel entry point takes ``interpret=None``: the kernels run in the
+Pallas interpreter exactly when the default JAX backend is the CPU
+(ops.pallas_march.resolve_interpret), never on a GPU.
 """
 
 from __future__ import annotations
@@ -33,34 +38,34 @@ from jax import lax
 from .config import RenderConfig
 from .core import shading
 from .core.render import render_image
-from .core.sdf import scene_sd
+from .core.sdf import scene_sd, take_rows
 from .ops.march_op import make_march_fn
 from .scene.compile import ScenePlan, SceneTables
 from .scene.parser import Scene
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 def resolve_backend(backend: str) -> str:
-    if backend == "auto":
-        return "mega" if _on_tpu() else "jnp"
-    return backend
+    """``"auto"`` -> the mega kernel path on a GPU, ``jnp`` on the CPU;
+    any other platform raises.  Explicit backends pass through."""
+    if backend != "auto":
+        return backend
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return "mega"
+    if platform == "cpu":
+        return "jnp"
+    raise RuntimeError(f"backend='auto' has no path for platform "
+                       f"{platform!r} (gpu or cpu)")
 
 
 @partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
-def _normal_op(plan: ScenePlan, cfg: RenderConfig, interpret: bool,
-               p, tables):
+def _normal_op(plan: ScenePlan, cfg: RenderConfig, interpret, p, tables):
     """Scene gradient (FD stencil or analytic winner gradient, per
     cfg.normal_mode): Pallas forward, jnp-rematerialized backward."""
     from .ops.pallas_march import kernel_key, pallas_surface_eval
 
     _, _, g = pallas_surface_eval(
-        kernel_key(plan), cfg.fd_h, cfg.tile_sublanes,
+        kernel_key(plan), cfg.fd_h, cfg.ray_block,
         p.reshape(-1, 3), tables,
         with_color=False, with_normal=True, fused=cfg.fused_generators,
         analytic=cfg.normal_mode == "analytic", interpret=interpret)
@@ -116,7 +121,7 @@ _normal_op.defvjp(_normal_fwd, _normal_bwd)
 
 def make_render_hooks(plan: ScenePlan, tables: SceneTables,
                       cfg: RenderConfig, backend: str, *,
-                      interpret: bool = False) -> dict:
+                      interpret: Optional[bool] = None) -> dict:
     """Build the fused-implementation hooks for core.render.render_image."""
     backend = resolve_backend(backend)
     if backend == "ref":
@@ -160,7 +165,7 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
         shape = o.shape
         res = pallas_march(kernel_key(plan), cfg.iterations,
                            cfg.surface_precision,
-                           cfg.tile_sublanes, o.reshape(-1, 3),
+                           cfg.ray_block, o.reshape(-1, 3),
                            d.reshape(-1, 3), sg_tables,
                            tmax=tmax.reshape(-1),
                            fused=cfg.fused_generators, interpret=interpret)
@@ -172,12 +177,10 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
     def surface_fn(p):
         flat = lax.stop_gradient(p.reshape(-1, 3))
         sd, cidx, _ = pallas_surface_eval(
-            kernel_key(plan), cfg.fd_h, cfg.tile_sublanes, flat, sg_tables,
+            kernel_key(plan), cfg.fd_h, cfg.ray_block, flat, sg_tables,
             with_color=True, with_normal=False,
             fused=cfg.fused_generators, interpret=interpret)
-        safe = jnp.clip(cidx, 0, tables.prim_color.shape[0] - 1)
-        color = jnp.where((cidx >= 0)[..., None],
-                          jnp.asarray(tables.prim_color)[safe], 0.0)
+        color = take_rows(jnp.asarray(tables.prim_color), cidx)
         return (sd.reshape(p.shape[:-1]),
                 color.reshape(p.shape[:-1] + (3,)))
 
@@ -191,14 +194,11 @@ def make_render_hooks(plan: ScenePlan, tables: SceneTables,
             "surface_fn": surface_fn, "normal_fn": normal_fn}
 
 
-# XLA compile time falls off a cliff as the lax.map chunk count grows:
-# the demo at 1024^2 SSAA3 with ray_chunk=65536 (144 chunks) cold-compiled
-# in 82-89 s on the real chip, while the SAME render at <=72 chunks
-# compiles in 4-6 s AND runs ~2% faster (r4 chunk sweep; the r3 ladder
-# carried the 86.6 s as a scene-complexity cost — it never was).  Chunking
-# exists to bound the backward's per-chunk working set, so the caller's
-# ray_chunk is treated as a MINIMUM granule and coarsened until the map
-# length fits; alignment to the kernel tile keeps chunks tile-exact.
+# XLA compile time grows steeply with the lax.map chunk count, so the
+# caller's ray_chunk is treated as a MINIMUM granule and coarsened until
+# the map length fits (chunking exists to bound the backward's per-chunk
+# working set); alignment to the kernel's ray block keeps chunks
+# block-exact.
 _MAX_CHUNKS = 64
 
 
@@ -208,19 +208,19 @@ def _effective_chunk(cfg: RenderConfig, R: int) -> int:
         return chunk
     if math.ceil(R / chunk) <= _MAX_CHUNKS:
         return chunk
-    align = cfg.tile_sublanes * 128
+    align = cfg.ray_block
     return math.ceil(math.ceil(R / _MAX_CHUNKS) / align) * align
 
 
 def _render_mega(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
-                 interpret: bool, ray_perm=None) -> jnp.ndarray:
+                 interpret, ray_perm=None) -> jnp.ndarray:
     """Single-kernel render: the whole per-ray pipeline in one pallas_call
     (ops.pallas_render), SSAA averaging outside.
 
     Rays are processed in ray_chunk blocks via lax.map (no remat — the
-    custom VJP already saves exactly its residuals): XLA's backward for a
+    custom VJP already saves exactly its residuals): the backward for a
     mapped chunk does many small color scatter-adds instead of one giant
-    one, which benchmarks several times faster on TPU."""
+    one, and the chunk bounds the backward's working set."""
     from .core import camera as cam
     from .core.order import (block_dims, from_blocked, resolve_ray_order,
                              to_blocked)
@@ -228,7 +228,7 @@ def _render_mega(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
 
     S = cfg.samples_per_pixel
     R = cfg.height * cfg.width * S
-    if (cfg.serve_raygen and ray_perm is None and R < 2 ** 24):
+    if (cfg.serve_raygen and ray_perm is None and R < 2 ** 31):
         # Serving fast path: directions generated IN the kernel
         # (ops.pallas_render._raygen_dirs; RenderConfig.serve_raygen).
         # Primal-only — differentiating through it fails loudly (no VJP).
@@ -236,26 +236,24 @@ def _render_mega(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     origin, dirs = cam.generate_rays(tables, cfg)
     flat = dirs.reshape(R, 3)
 
-    # Block ray order (bit-exact, see core.order): tiles cover compact
-    # pixel blocks instead of full image rows, so a tile's slowest lane
-    # is a near neighbour, not a fractal pixel half a frame away.
-    bdims = (block_dims(cfg.height, cfg.width, S, cfg.tile_sublanes * 128)
+    # Block ray order (bit-exact, see core.order): kernel blocks cover
+    # compact pixel blocks instead of image-row runs, so a block's slowest
+    # lane is a near neighbour, not a fractal pixel far away.
+    bdims = (block_dims(cfg.height, cfg.width, S, cfg.ray_block)
              if resolve_ray_order(cfg, "mega") else None)
     if bdims is not None:
         flat = to_blocked(flat, cfg.height, cfg.width, S, *bdims)
 
-    # Cost-ordered tile scheduling (opt-in via ray_perm, see
-    # plan_cost_order): permute the kernel's 128-ray sublane rows so each
-    # tile holds similar-cost rows — the straggler bound drops toward the
-    # tile-mean oracle.  Bit-exact (outputs inverse-permuted below) and
+    # Cost-ordered block scheduling (opt-in via ray_perm, see
+    # plan_cost_order): permute 128-ray rows so each kernel block holds
+    # similar-cost rows.  Bit-exact (outputs inverse-permuted below) and
     # scatter-free in the backward (core.order.row_permuters).
     apply_perm = invert_perm = None
     if ray_perm is not None:
-        from .core.order import LANES as _LANES
-        from .core.order import row_permuters
-        if len(ray_perm) * _LANES != R:
+        from .core.order import PERM_ROW, row_permuters
+        if len(ray_perm) * PERM_ROW != R:
             raise ValueError(f"ray_perm has {len(ray_perm)} rows; frame "
-                             f"needs {R // _LANES}")
+                             f"needs {R // PERM_ROW}")
         apply_perm, invert_perm = row_permuters(ray_perm)
         flat = apply_perm(flat)
 
@@ -279,7 +277,7 @@ def _render_mega(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
 
 
 def _render_mega_serve(plan: ScenePlan, tables: SceneTables,
-                       cfg: RenderConfig, interpret: bool,
+                       cfg: RenderConfig, interpret,
                        R: int, S: int) -> jnp.ndarray:
     """Serving fast path (RenderConfig.serve_raygen): the mega kernel
     generates its own ray directions from the ray index, so the frame
@@ -291,7 +289,7 @@ def _render_mega_serve(plan: ScenePlan, tables: SceneTables,
     from .core.order import block_dims, from_blocked, resolve_ray_order
     from .ops.pallas_render import serve_render_chunk
 
-    bdims = (block_dims(cfg.height, cfg.width, S, cfg.tile_sublanes * 128)
+    bdims = (block_dims(cfg.height, cfg.width, S, cfg.ray_block)
              if resolve_ray_order(cfg, "mega") else None)
     bh, bw = bdims if bdims is not None else (0, 0)
     raygen = (cfg.width, cfg.height, cfg.ssaa, bh, bw)
@@ -313,17 +311,16 @@ def _render_mega_serve(plan: ScenePlan, tables: SceneTables,
 
 def plan_cost_order(plan: ScenePlan, tables: SceneTables,
                     cfg: RenderConfig, *, forward_only: bool = False,
-                    interpret: bool = False):
-    """Predict per-row frame cost and return the sublane-row permutation
-    for cost-ordered tile scheduling (``render_tables(..., ray_perm=)``).
+                    interpret: Optional[bool] = None):
+    """Predict per-row frame cost and return the 128-ray row permutation
+    for cost-ordered block scheduling (``render_tables(..., ray_perm=)``).
 
     The cost model is the WHOLE per-ray pipeline, not just the primary
     march: primary steps + every light's shadow-march steps (from the hit
     point, lifted off the surface exactly like the shade body).  Ordering
-    by primary steps alone measured 35% SLOWER end-to-end even though it
-    cut issued march evals 40%: rays with equal primary cost come from all
-    over the image, so tiles homogeneous in march cost became maximally
-    HETEROGENEOUS in shadow cost, and the shadow straggler ate the win.
+    by primary steps alone makes blocks homogeneous in march cost but
+    HETEROGENEOUS in shadow cost (rays with equal primary cost come from
+    all over the image), so the shadow straggler eats the win.
     ``forward_only`` additionally models the black-lane shadow skip (those
     lanes' shadow marches are free in serving renders, and the skip is
     disabled under differentiation — match the regime you schedule for).
@@ -336,22 +333,12 @@ def plan_cost_order(plan: ScenePlan, tables: SceneTables,
     host numpy int32 array; pass it to render_tables unchanged (it is
     folded into the jit as a constant).
 
-    MEASURED OUTCOME on the demo bench workload (ab_cost_order_r4.json,
-    benchmarks/ab_cost_*.py): cost ordering LOSES 8-10% to plain block
-    ordering, so it is opt-in, not the default.  The decomposition: the
-    standalone primary march speeds up 39% (the mechanism works, and
-    matches the issued-eval model exactly), but (a) the frame's three
-    march phases (primary, shadow x2) have nearly independent divergence
-    patterns, so no single ordering reduces TOTAL issued work — sorting
-    for one phase explodes another's stragglers (predicted issued evals:
-    block 139M, cost-sorted 140M); and (b) permuting tile order AT
-    IDENTICAL TILE COMPOSITION costs 8.5% by itself — sequential tile
-    dispatch streams HBM pages in layout order, any non-trivial order
-    breaks that locality.  Block ordering is near-optimal among spatial
-    orderings because locality is the only signal correlated with all
-    three phases at once.  Kept for single-phase workloads (shadowless
+    Not the default: the frame's three march phases (primary, shadow x2)
+    have nearly independent divergence patterns, so no single ordering
+    reduces TOTAL issued work, and permuting block order costs memory
+    locality by itself.  Kept for single-phase workloads (shadowless
     serving, standalone marches, extreme-divergence fractals) where the
-    composition gain can dominate the order-scrambling tax.
+    composition gain can dominate.  Unmeasured on the GPU.
     """
     import numpy as np
 
@@ -366,7 +353,7 @@ def plan_cost_order(plan: ScenePlan, tables: SceneTables,
     S = cfg.samples_per_pixel
     R = cfg.height * cfg.width * S
     flat = dirs.reshape(R, 3)
-    bdims = (block_dims(cfg.height, cfg.width, S, cfg.tile_sublanes * 128)
+    bdims = (block_dims(cfg.height, cfg.width, S, cfg.ray_block)
              if resolve_ray_order(cfg, "mega") else None)
     if bdims is not None:
         flat = to_blocked(flat, cfg.height, cfg.width, S, *bdims)
@@ -376,7 +363,7 @@ def plan_cost_order(plan: ScenePlan, tables: SceneTables,
     @jax.jit
     def _cost(o, d, tb):
         res, steps = pallas_march(
-            kp, cfg.iterations, cfg.surface_precision, cfg.tile_sublanes,
+            kp, cfg.iterations, cfg.surface_precision, cfg.ray_block,
             o, d, tb, fused=cfg.fused_generators, with_steps=True,
             interpret=interpret)
         cost = steps.astype(jnp.float32)
@@ -384,7 +371,7 @@ def plan_cost_order(plan: ScenePlan, tables: SceneTables,
             return cost
         p = res.position
         _, cidx, g = pallas_surface_eval(
-            kp, cfg.fd_h, cfg.tile_sublanes, p, tb,
+            kp, cfg.fd_h, cfg.ray_block, p, tb,
             with_color=bool(black), with_normal=True,
             fused=cfg.fused_generators, analytic=True, interpret=interpret)
         n = g / jnp.maximum(jnp.linalg.norm(g, axis=-1, keepdims=True),
@@ -397,7 +384,7 @@ def plan_cost_order(plan: ScenePlan, tables: SceneTables,
             rd = r / jnp.maximum(tmax, tiny)[:, None]
             _, ssteps = pallas_march(
                 kp, cfg.iterations, cfg.surface_precision,
-                cfg.tile_sublanes, s, rd, tb, tmax=tmax,
+                cfg.ray_block, s, rd, tb, tmax=tmax,
                 fused=cfg.fused_generators, with_steps=True,
                 interpret=interpret)
             shadow = shadow + ssteps.astype(jnp.float32)
@@ -416,14 +403,14 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
                   cfg: Optional[RenderConfig] = None, *,
                   backend: Optional[str] = None,
                   differentiable: bool = False,
-                  interpret: bool = False,
+                  interpret: Optional[bool] = None,
                   ray_perm=None) -> jnp.ndarray:
     """Render compiled tables -> [H, W, 3].  Differentiable w.r.t. every
     array in ``tables`` on all backends (IFT backward on the fast paths,
     unrolled autodiff on ``ref`` with differentiable=True).
 
-    ``ray_perm``: optional host int array of kernel sublane-row indices
-    (from ``plan_cost_order``) enabling cost-ordered tile scheduling on
+    ``ray_perm``: optional host int array of 128-ray row indices
+    (from ``plan_cost_order``) enabling cost-ordered block scheduling on
     the mega backend — bit-exact, speed-only (see core.order)."""
     cfg = cfg or RenderConfig()
     backend = resolve_backend(backend or cfg.backend)
@@ -434,7 +421,7 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
         # jnp scene_sd, re-marching every shadow ray through the
         # [rays, prims] leaf matrix (the working set the kernel path
         # exists to avoid).  The mega kernel tracks the penumbra factor
-        # in-kernel; route there (it is the auto choice on TPU anyway).
+        # in-kernel; route there (it is the auto choice on a GPU anyway).
         backend = "mega"
     if ray_perm is not None and (backend != "mega" or cfg.aperture > 0.0):
         raise ValueError("ray_perm (cost-ordered scheduling) rides the "
@@ -453,12 +440,12 @@ def render_tables(plan: ScenePlan, tables: SceneTables,
 
 def _render_dof(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                 backend: str, differentiable: bool,
-                interpret: bool) -> jnp.ndarray:
+                interpret) -> jnp.ndarray:
     """Thin-lens depth of field (cfg.aperture > 0): the frame becomes one
     per-ray-origin bundle — every SSAA sample carries its lens-disk origin
     and focal-point direction (core.camera.generate_rays_dof) — and the
     ordinary SSAA mean integrates over the lens.  Mega rides render_rays
-    (per-ray-origin VMEM streams, cfg.ray_chunk honored); ref/jnp/pallas
+    (per-ray-origin streams, cfg.ray_chunk honored); ref/jnp/pallas
     ride the hook layer, whose marches already accept [R, 3] origins
     (the reflection recursion relies on it)."""
     from .core import camera as cam
@@ -470,7 +457,7 @@ def _render_dof(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
     S = cfg.samples_per_pixel
     R = cfg.height * cfg.width * S
     o, d = o.reshape(R, 3), d.reshape(R, 3)
-    bdims = (block_dims(cfg.height, cfg.width, S, cfg.tile_sublanes * 128)
+    bdims = (block_dims(cfg.height, cfg.width, S, cfg.ray_block)
              if resolve_ray_order(cfg, backend) else None)
     if bdims is not None:
         o = to_blocked(o, cfg.height, cfg.width, S, *bdims)
@@ -510,7 +497,7 @@ def _render_dof(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
 
 def render_tiled(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                  *, row_block: int = 128, backend: Optional[str] = None,
-                 interpret: bool = False, row_start: int = 0,
+                 interpret: Optional[bool] = None, row_start: int = 0,
                  num_rows: Optional[int] = None):
     """Stream a frame through the device in row blocks -> host [H, W, 3].
 
@@ -555,7 +542,7 @@ def render_tiled(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
         else:
             origin, dirs = cam.generate_rays(tables, cfg, row_range=(r0, n))
         flat = dirs.reshape(-1, 3)
-        bdims = (block_dims(n, cfg.width, S, cfg.tile_sublanes * 128)
+        bdims = (block_dims(n, cfg.width, S, cfg.ray_block)
                  if resolve_ray_order(cfg, backend) else None)
         if bdims is not None:
             flat = to_blocked(flat, n, cfg.width, S, *bdims)
@@ -588,7 +575,7 @@ def render_tiled(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
 def render_tiled_multihost(plan: ScenePlan, tables: SceneTables,
                            cfg: RenderConfig, *, row_block: int = 128,
                            backend: Optional[str] = None,
-                           interpret: bool = False):
+                           interpret: Optional[bool] = None):
     """Host-sharded tiled rendering: every process streams its OWN
     contiguous row slice through its local device via ``render_tiled``,
     then ONE save-time DCN allgather assembles the full frame on every
@@ -639,12 +626,10 @@ def render_rays(plan: ScenePlan, tables: SceneTables,
     render.cpp:92-101) — this is the entry point for custom samplings:
     posed-photo fitting, light probes, batched animation frames
     (render_frames).  Runs the mega kernel (per-ray origins ride three
-    VMEM streams instead of the SMEM broadcast) and is differentiable
+    ray streams instead of a scalar broadcast) and is differentiable
     w.r.t. tables, origins and dirs through the same custom-VJP op as
     render_tables' mega path.  ``cfg.ray_chunk`` bounds the working set."""
     cfg = cfg or RenderConfig()
-    if interpret is None:
-        interpret = not _on_tpu()
     from .ops.pallas_render import fused_render_op
 
     dirs = jnp.asarray(dirs, jnp.float32)
@@ -762,9 +747,7 @@ def turntable_frames(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                 yield img
     else:
         render = jax.jit(lambda t: render_tables(
-            plan, t, cfg, backend=resolved,
-            interpret=bool(interpret) if interpret is not None
-            else not _on_tpu()))
+            plan, t, cfg, backend=resolved, interpret=interpret))
         for i in range(frames):
             pos, d = pose(i)
             t = tables._replace(cam_position=jnp.asarray(pos),
@@ -792,13 +775,11 @@ def render_aovs(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                         planes cannot see — utils.gatecheck uses this)
 
     One mega-kernel launch supplies everything but the normal (one more
-    surface-kernel launch); runs interpret-mode off-TPU.  Not
-    differentiable (outputs, not a loss path)."""
+    surface-kernel launch).  Not differentiable (outputs, not a loss
+    path)."""
     from .core import camera as cam
     from .ops.pallas_render import _blend_bounces, pallas_render_rays
 
-    if interpret is None:
-        interpret = not _on_tpu()
     origin, dirs = cam.generate_rays(tables, cfg)
     S = cfg.samples_per_pixel
     H, W = cfg.height, cfg.width

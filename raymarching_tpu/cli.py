@@ -1,6 +1,6 @@
 """Command-line driver.
 
-TPU-native replacement for the reference's fixed main() pipeline
+Replacement for the reference's fixed main() pipeline
 (main.cpp:17-88): load scene -> render through the selected backend(s) with
 per-phase wall-clock prints -> save image.  Unlike the reference (no argv at
 all), everything is a flag; defaults reproduce the reference configuration
@@ -29,7 +29,7 @@ from .utils.timing import Phase
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raymarching_tpu",
-        description="TPU-native differentiable sphere-tracing renderer")
+        description="differentiable sphere-tracing renderer")
     p.add_argument("--scene", required=True, help="scene text file "
                    "(reference objects.txt grammar)")
     p.add_argument("--out", default=None,
@@ -104,6 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils.cache import setup_compile_cache
+    setup_compile_cache()
 
     import os
     render_wanted = args.out is not None or args.mesh is None

@@ -80,13 +80,11 @@ def generate_rays(tables: SceneTables, cfg: RenderConfig,
     n = jnp.sqrt(x * x + y * y + 1.0)   # z = -1, so z^2 is exactly 1
     xc, yc, zc = x / n, y / n, -1.0 / n
     R = camera_rotation(tables.cam_direction, tables.cam_up)
-    # Rotate into world with ELEMENTWISE mul-adds, not `d @ R.T`: XLA
-    # lowers a [*, 3] @ [3, 3] matmul onto the MXU at default precision,
-    # which is bf16-class on TPU — measured ~1e-3 direction error, i.e.
-    # a half-pixel warp (found when the in-kernel serving raygen, which
-    # does full-f32 mul-adds, disagreed with this path by 4e-3).  The
-    # elementwise form is exact f32 and matches the kernel's formula op
-    # for op (ops.pallas_render._raygen_dirs).
+    # Rotate into world with ELEMENTWISE mul-adds, not `d @ R.T`: at
+    # default precision XLA may run a [*, 3] @ [3, 3] matmul in reduced
+    # precision (TF32 on a GPU) — ~1e-3 direction error, a half-pixel
+    # warp.  The elementwise form is exact f32 and matches the kernel's
+    # formula op for op (ops.pallas_render._raygen_dirs).
     d = jnp.stack([xc * R[0, 0] + yc * R[0, 1] + zc * R[0, 2],
                    xc * R[1, 0] + yc * R[1, 1] + zc * R[1, 2],
                    xc * R[2, 0] + yc * R[2, 1] + zc * R[2, 2]], axis=-1)
@@ -131,8 +129,8 @@ def generate_rays_dof(tables: SceneTables, cfg: RenderConfig,
     right, up2, fwd = R[:, 0], R[:, 1], -R[:, 2]
     off = lens_offsets(cfg)                             # [S, 2]
     off_w = off[:, 0:1] * right + off[:, 1:2] * up2     # [S, 3]
-    # elementwise dot (a [*, 3] einsum would ride the MXU at default
-    # bf16-class precision — see generate_rays' rotation note)
+    # elementwise dot (a [*, 3] einsum may run at reduced default
+    # precision — see generate_rays' rotation note)
     tf = cfg.focus_dist / (d[..., 0] * fwd[0] + d[..., 1] * fwd[1]
                            + d[..., 2] * fwd[2])
     pf = o + tf[..., None] * d                          # focal points

@@ -9,10 +9,10 @@ point includes one final sub-epsilon step, and the returned (SD, color) were
 evaluated at the position one step back.  There is no miss flag; scenes rely
 on an inverted Bounds box so every ray terminates (SURVEY §2 fine print).
 
-TPU-native re-design: per-ray ``break`` becomes a convergence mask —
+Vector re-design: per-ray ``break`` becomes a convergence mask —
 converged rays freeze while the rest keep stepping, which preserves the
-reference's per-ray trajectory bit-for-bit while keeping every lane of the
-VPU busy.  Two drivers:
+reference's per-ray trajectory bit-for-bit while every lane stays in
+lockstep.  Two drivers:
 
   * ``lax.while_loop`` with a whole-batch "all converged" early exit —
     fastest forward path (not differentiable);
@@ -95,7 +95,7 @@ def march_scan(scene_sd: Callable, origin: jnp.ndarray, ray: jnp.ndarray,
 
     ``remat_chunk`` > 0 splits the scan into rematerialized chunks so the
     backward pass stores O(iterations / chunk) residual sets instead of one
-    per step (jax.checkpoint — the TPU memory/FLOPs trade, SURVEY §5).
+    per step (jax.checkpoint — the memory/FLOPs trade, SURVEY §5).
     """
     batch = origin.shape[:-1]
     carry0 = (origin, jnp.full(batch, jnp.inf, origin.dtype),

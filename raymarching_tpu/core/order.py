@@ -1,26 +1,23 @@
-"""Ray-ordering: map camera-grid samples to hardware tiles as pixel blocks.
+"""Ray-ordering: map camera-grid samples to kernel ray blocks as pixel
+blocks.
 
-The Pallas kernels process rays in (tile_sublanes, 128) tiles, and a tile
-keeps marching until its SLOWEST lane converges (the TPU analogue of warp
-divergence in the reference's GLSL kernel, shader.comp:288-297 — there a
-diverged warp, here a whole tile).  In flat scan order one tile at the
-512x512/SSAA-2 bench config is one full image row: background lanes that
-converge in a handful of steps sit behind fractal-silhouette lanes for
-dozens, a measured 4.1x issued-vs-active eval bound (benchmarks/roofline.py).
-Reordering samples so each tile covers a compact ~square pixel block cuts
-the same profile's bound to 2.3x.
+The kernels process rays in 1-D blocks of RenderConfig.ray_block lanes,
+and a block keeps marching until its SLOWEST lane converges (the analogue
+of warp divergence in the reference's GLSL kernel, shader.comp:288-297).
+In flat scan order a block is a run of one image row: background lanes
+that converge in a handful of steps sit behind fractal-silhouette lanes
+for dozens.  Reordering samples so each block covers a compact ~square
+pixel block keeps a block's lanes spatial neighbours.
 
 The reorder is expressed as RESHAPE + TRANSPOSE (block dims divide the
 frame by construction: they are chosen among the divisors of H and W), NOT
 as a gather with an index array: a transpose's VJP is the inverse
 transpose — a fast contiguous copy — while a 1M-row gather's VJP is a
-scatter that costs more than the reorder saves (measured: gather-based
-ordering LOST 35% end-to-end; scatter-adds at this row count are ~0.3 s
-class on this chip).
+scatter-add.
 
 Results are inverse-permuted on the way out, so rendered images are
 BIT-EXACT identical to scan order: per-ray arithmetic never depends on
-tile composition, and the kernel's cull/early-exit decisions are
+block composition, and the kernel's cull/early-exit decisions are
 value-exact proofs.  (Cotangents that REDUCE over rays — table gradients —
 see a different FP summation order: reduction-order noise only.)
 """
@@ -35,20 +32,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-LANES = 128   # hardware lane width: one kernel sublane row = 128 rays
+PERM_ROW = 128   # rays per row of a cost-ordering permutation
 
 
 @lru_cache(maxsize=64)
-def block_dims(H: int, W: int, S: int, tile_rays: int
+def block_dims(H: int, W: int, S: int, block_rays: int
                ) -> Optional[Tuple[int, int]]:
     """Pixel-block shape (bh, bw) with bh | H and bw | W, sized so one
-    block holds ~tile_rays samples with ~square aspect; None when the
+    block holds ~block_rays samples with ~square aspect; None when the
     frame is too small for ordering to matter or no useful split exists.
     """
     R = H * W * S
-    if R < 2 * tile_rays:
+    if R < 2 * block_rays:
         return None
-    P = max(1, tile_rays // S)              # target pixels per tile
+    P = max(1, block_rays // S)             # target pixels per block
     divs_h = [d for d in range(1, H + 1) if H % d == 0]
     divs_w = [d for d in range(1, W + 1) if W % d == 0]
     bh = min(divs_h, key=lambda d: abs(d - math.sqrt(P)))
@@ -79,32 +76,27 @@ def from_blocked(x: jnp.ndarray, H: int, W: int, S: int,
     return x.reshape((H * W * S,) + tail)
 
 
-def row_cost_perm(steps: np.ndarray, row: int = LANES) -> np.ndarray:
-    """Cost-ordered tile scheduling: permutation of the kernel's sublane
-    ROWS (``row`` consecutive rays each) sorted by the row's max predicted
-    step count.
+def row_cost_perm(steps: np.ndarray, row: int = PERM_ROW) -> np.ndarray:
+    """Cost-ordered block scheduling: permutation of ROWS of ``row``
+    consecutive rays, sorted by the row's max predicted step count.
 
-    A (tile_sublanes, 128) tile marches until its SLOWEST lane converges,
-    so a tile's cost is the max over its rays — mixing a fractal-silhouette
-    row with background rows bills every lane the fractal's steps (the
-    reference's GLSL kernel eats the same divergence per warp,
-    shader.comp:288-297).  Sorting rows by cost makes tiles
-    cost-homogeneous: tile max ≈ tile mean, which is the oracle bound the
-    roofline measures (1.15x vs block ordering's 2.27x on the demo scene).
-    In practice that oracle is NOT reachable on multi-phase frames — see
-    api.plan_cost_order's MEASURED OUTCOME note for why this stays opt-in
-    (independent per-phase divergence + tile-order HBM locality tax).
+    A kernel block marches until its SLOWEST lane converges, so its cost
+    is the max over its rays — mixing a fractal-silhouette row with
+    background rows bills every lane the fractal's steps (the reference's
+    GLSL kernel eats the same divergence per warp, shader.comp:288-297).
+    Sorting rows by cost makes blocks cost-homogeneous.  Opt-in: see
+    api.plan_cost_order for why it does not pay on multi-phase frames.
 
     The permutation is over ROWS, not rays, for two reasons: the gather is
-    8192 indices instead of 1M (its VJP — the inverse row gather, see
-    row_permuters — is a contiguous 512-byte-row copy), and each row keeps
-    128 spatially-adjacent samples so per-row cost stays coherent.
+    R/row indices instead of R (its VJP — the inverse row gather, see
+    row_permuters — is a contiguous row copy), and each row keeps
+    spatially-adjacent samples so per-row cost stays coherent.
 
     ``steps`` must be per-ray step counts in the LAYOUT THE KERNEL SEES
     (i.e. after block ordering when that is enabled) — api.plan_cost_order
     produces them with the kernel's own counters.  Stale or wrong costs
     degrade only SPEED, never results: the image is bit-exact under any
-    row permutation (per-ray arithmetic is tile-independent, and outputs
+    row permutation (per-ray arithmetic is block-independent, and outputs
     are inverse-permuted before the SSAA mean).
     """
     steps = np.asarray(steps).ravel()
@@ -114,16 +106,14 @@ def row_cost_perm(steps: np.ndarray, row: int = LANES) -> np.ndarray:
     return np.argsort(cost, kind="stable").astype(np.int32)
 
 
-def row_permuters(perm: np.ndarray, row: int = LANES
+def row_permuters(perm: np.ndarray, row: int = PERM_ROW
                   ) -> Tuple[Callable, Callable]:
     """(apply, invert) for a row permutation on flat [R, ...] ray arrays.
 
     Both directions are jnp row-takes with a CUSTOM VJP: the transpose of
     a bijective take is the take by the inverse permutation — a gather,
-    never a scatter.  (XLA's default gather transpose IS a scatter, and a
-    1M-row scatter-add costs ~0.3 s on this chip — the measured 35%
-    regression that killed naive gather-based ray ordering, see module
-    docstring.  The bijection is what makes the cheap transpose valid.)
+    never a scatter (XLA's default gather transpose IS a scatter-add; the
+    bijection is what makes the cheap transpose valid).
     """
     perm = np.asarray(perm, np.int32)
     inv = np.empty_like(perm)

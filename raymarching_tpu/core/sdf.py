@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -311,10 +312,56 @@ def scene_surface(plan: ScenePlan, tables: SceneTables, p: jnp.ndarray):
     """Scene signed distance and surface color at p: ([...], [..., 3])."""
     leaf = leaf_sd(plan, tables, p)
     sd, ci = _fold_values(plan, leaf, with_color=True)
-    safe = jnp.clip(ci, 0, tables.prim_color.shape[0] - 1)
-    color = jnp.where((ci >= 0)[..., None],
-                      jnp.asarray(tables.prim_color)[safe], 0.0)
-    return sd, color
+    return sd, take_rows(jnp.asarray(tables.prim_color), ci)
+
+
+# Rays per block of segment_sum_rows' first level.  XLA:GPU's scatter-add
+# accumulates a row's updates one after another in f32, so a row that most
+# rays hit (a Bounds wall) drifts with the ray count: 1.9e-3 relative at 1M
+# rays on an H100 (PERF.md).  Summing per block first bounds each chain.
+_SUM_BLOCK = 256
+# Cap on the [blocks, P, C] partial sums (elements); past it blocks grow.
+_SUM_PARTIALS = 1 << 24
+
+
+def segment_sum_rows(idx: jnp.ndarray, vals: jnp.ndarray,
+                     P: int) -> jnp.ndarray:
+    """Sum of ``vals`` [R, C] rows per ``idx`` [R] in [0, P) -> [P, C];
+    other ids drop.  Two levels: a scatter-add per block of rays, then a
+    reduction over the blocks."""
+    R, C = vals.shape
+    nb = max(1, min(-(-R // _SUM_BLOCK), _SUM_PARTIALS // max(P * C, 1)))
+    block = -(-R // nb)
+    pad = nb * block - R
+    idx = jnp.where((idx >= 0) & (idx < P), idx, P)
+    if pad:
+        idx = jnp.concatenate([idx, jnp.full((pad,), P, idx.dtype)])
+        vals = jnp.concatenate([vals, jnp.zeros((pad, C), vals.dtype)])
+    part = jnp.zeros((nb, P, C), vals.dtype).at[
+        jnp.arange(nb)[:, None], idx.reshape(nb, block)].add(
+            vals.reshape(nb, block, C), mode="drop")
+    return jnp.sum(part, axis=0)
+
+
+@jax.custom_vjp
+def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """Rows ``table[idx]`` [..., C] (idx < 0 -> zeros); the cotangent of
+    ``table`` is summed by segment_sum_rows, not one scatter-add."""
+    safe = jnp.clip(idx, 0, table.shape[0] - 1)
+    return jnp.where((idx >= 0)[..., None], table[safe], 0.0)
+
+
+def _take_rows_fwd(table, idx):
+    return take_rows(table, idx), (idx, table.shape[0])
+
+
+def _take_rows_bwd(res, g):
+    idx, P = res
+    return (segment_sum_rows(idx.reshape(-1), g.reshape(-1, g.shape[-1]), P),
+            None)
+
+
+take_rows.defvjp(_take_rows_fwd, _take_rows_bwd)
 
 
 def _run_sd(tables: SceneTables, ptype, start: int, count: int,

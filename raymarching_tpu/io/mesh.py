@@ -6,13 +6,13 @@ SDF framework ships: sample the compiled scene field on a dense grid and
 extract the zero isosurface as a watertight triangle mesh, for DCC
 interchange, collision proxies, or 3-D printing of fitted scenes.
 
-TPU-shaped split of the work:
+Host/device split of the work:
 
   * the expensive part — ``res**3`` scene-field evaluations, each folding
     every primitive — runs on device through the SAME Pallas surface
     kernel the renderer uses (``ops.pallas_march.pallas_surface_eval``),
-    chunked so only one block of points is resident at a time; off-TPU it
-    falls back to the vectorized jnp fold;
+    chunked so only one block of points is resident at a time; on the
+    CPU it falls back to the vectorized jnp fold;
   * the topology pass (tetrahedron case classification, shared-edge vertex
     dedup) is tiny integer bookkeeping over the sign grid and runs
     vectorized in host numpy — exactly the host/device split the scene
@@ -234,17 +234,16 @@ def sample_sdf_grid(plan: ScenePlan, tables: SceneTables, lo, hi,
                     fused: bool = False, chunk: int = 1 << 18) -> np.ndarray:
     """Evaluate the scene SDF on a [rx, ry, rz] grid spanning [lo, hi].
 
-    On TPU the points stream through the Pallas surface kernel in
-    ``chunk``-point blocks (the same exact-table fold the renderer
-    marches); elsewhere the vectorized jnp fold.  Returns host f32."""
+    On a GPU (backend "auto") the points stream through the Pallas
+    surface kernel in ``chunk``-point blocks (the same exact-table fold
+    the renderer marches); on the CPU the vectorized jnp fold.  Returns
+    host f32."""
     import jax
     import jax.numpy as jnp
 
-    from ..api import _on_tpu, resolve_backend
+    from ..api import resolve_backend
     from ..core.sdf import scene_sd
 
-    if interpret is None:
-        interpret = not _on_tpu()
     backend = resolve_backend(backend)
     res = np.broadcast_to(np.asarray(resolution, np.int64), (3,))
     lo = np.asarray(lo, np.float64)
@@ -263,7 +262,7 @@ def sample_sdf_grid(plan: ScenePlan, tables: SceneTables, lo, hi,
         @jax.jit
         def eval_block(block):
             sd, _, _ = pallas_surface_eval(
-                kp, cfg.fd_h, cfg.tile_sublanes, block, tables,
+                kp, cfg.fd_h, cfg.ray_block, block, tables,
                 with_color=False, with_normal=False, fused=fused,
                 interpret=interpret)
             return sd

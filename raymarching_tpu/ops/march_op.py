@@ -25,7 +25,7 @@ Notes on dropped cotangents:
   * ``converged``: boolean, non-differentiable.
 
 The forward driver is pluggable: pure-jnp while_loop (CPU / oracle) or the
-fused Pallas TPU kernel (ops.pallas_march).  The backward only needs hit
+fused Pallas kernel (ops.pallas_march).  The backward only needs hit
 points, so both forwards share this backward; gradcheck against the
 unrolled-scan autodiff oracle validates the IFT route (tests/test_grad.py).
 """

@@ -1,27 +1,30 @@
-"""Fused Pallas TPU march kernel.
+"""Fused Pallas march kernels (Triton route, one ray per GPU thread).
 
-The hot loop of the whole framework: sphere-trace a tile of rays against the
-compiled CSG scene.  This replaces the reference's GLSL compute kernel
+The hot loop of the whole framework: sphere-trace a block of rays against
+the compiled CSG scene.  This replaces the reference's GLSL compute kernel
 (shader.comp:226-297) — but where the GLSL walks the CSG tree with a
-divergent per-thread stack interpreter (the single biggest thing that must
-NOT be translated to TPU, SURVEY §3.4), this kernel is generated from the
-static ScenePlan at trace time:
+divergent per-thread stack interpreter (SURVEY §3.4), this kernel is
+generated from the static ScenePlan at trace time:
 
-  * Rays live as (tile_sublanes, 128) f32 registers/VMEM scratch — every
-    VPU lane owns one ray; march state updates are full-width vector ops.
-  * Primitive parameters sit in SMEM and are broadcast as scalars into the
-    vector ops (the TPU analogue of the reference's read-only SSBO broadcast,
+  * Rays live as 1-D f32 vectors of ``ray_block`` lanes (a power of two,
+    RenderConfig.ray_block) — every thread of the program owns a ray;
+    march state rides loop-carried vectors in registers.
+  * Primitive parameters sit in ONE global-memory table ref
+    (``memory_space=pl.ANY``) read by scalar loads and broadcast into the
+    vector ops (the analogue of the reference's read-only SSBO broadcast,
     render.cpp:439-445) — the [rays, prims] distance matrix that makes the
-    XLA jnp path HBM-bound is never materialized.
+    XLA jnp path memory-bound is never materialized.
   * The CSG fold is compiled structure: a static Python loop over groups and
     same-type runs, ``lax.fori_loop`` over primitives within a run, running
-    min in registers.  No data-dependent control flow, no divergence.
-  * Early exit is per-TILE: a ``lax.while_loop`` whose carry holds the
-    iteration count and an all-converged flag — converged rays freeze
+    min in registers.
+  * Early exit is per-BLOCK (march_values): converged rays freeze
     (mask semantics identical to the reference's per-ray break,
-    scene.cpp:36-40) and the tile stops as soon as every lane converged.
+    scene.cpp:36-40) and the block stops stepping as soon as every lane
+    converged.
 
-Grid: 1-D over ray tiles; each program handles tile_sublanes*128 rays.
+Grid: 1-D over ray blocks.  Every ``pallas_call`` names the Triton route
+(``backend="triton"``); on a CPU host the same kernels run in the Pallas
+interpreter (resolve_interpret).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..config import RenderConfig
 from ..core.march import MAX_STEP, MarchResult
@@ -41,7 +44,64 @@ from ..scene.compile import (MIN, KernelPlan, ScenePlan, SceneTables,
                              iter_bvh_chunks)
 from ..scene.csg import PrimType
 
-LANES = 128
+
+
+def resolve_interpret(interpret=None) -> bool:
+    """THE interpret-mode rule for every kernel of the package: ``None``
+    means "interpret exactly when the default JAX backend is the CPU".
+    A kernel never runs in the interpreter on a GPU."""
+    on_cpu = jax.default_backend() == "cpu"
+    if interpret is None:
+        return on_cpu
+    if interpret and not on_cpu:
+        raise ValueError("interpret=True off the CPU: kernels run compiled "
+                         "on an accelerator")
+    return bool(interpret)
+
+
+def _check_block(ray_block: int) -> None:
+    if ray_block < 32 or ray_block & (ray_block - 1):
+        raise ValueError(f"ray_block={ray_block}: the Triton lowering needs "
+                         "a power of two >= 32")
+
+
+def _num_warps(ray_block: int) -> int:
+    """One ray per thread, capped at 8 warps (untuned beyond the
+    PERF.md sweep)."""
+    return max(1, min(8, ray_block // 32))
+
+
+def _kernel_call(kernel, num_blocks: int, ray_block: int, in_specs,
+                 out_shape, interpret: bool):
+    """pallas_call on the Triton route with 1-D ray-block specs for every
+    output; ``in_specs`` entries are ``"ray"`` (a per-ray stream) or
+    ``"any"`` (a whole-array global-memory ref read by scalar loads)."""
+    ray = pl.BlockSpec((ray_block,), lambda i: (i,))
+    glob = pl.BlockSpec(memory_space=pl.ANY)
+    return pl.pallas_call(
+        kernel,
+        grid=(num_blocks,),
+        in_specs=[ray if s == "ray" else glob for s in in_specs],
+        out_specs=tuple(ray for _ in out_shape),
+        out_shape=tuple(out_shape),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=_num_warps(ray_block), num_stages=1),
+        interpret=interpret,
+    )
+
+
+def _all_lanes(mask):
+    """Scalar: is ``mask`` true on every lane of the block?  (A min over
+    an int view — the Triton lowering has no boolean and-reduce.)"""
+    return jnp.min(jnp.where(mask, 1, 0)) > 0
+
+
+def _round_clip1(x):
+    """``clip(round(x), -1, 1)`` (round half to even) from compares: the
+    Triton lowering has no ``round``.  Equal for every finite x: |x| <= 0.5
+    rounds to 0, anything beyond rounds to a value the clip pins at ±1."""
+    return jnp.where(x > 0.5, 1.0, jnp.where(x < -0.5, -1.0, 0.0))
 
 
 def kernel_key(plan: ScenePlan):
@@ -59,7 +119,7 @@ def _med3(a, b, c):
 
     Mathematically equal to the reference's ``sum - min - max``
     (body.cpp:51-57) but built ONLY from exactly-rounded min/max ops: 4
-    VPU ops instead of 8, and EXACTLY monotone per argument in f32 — the
+    vector ops instead of 8, and EXACTLY monotone per argument in f32 — the
     property _menger_carve_lattice's bitwise-collapse proof requires (the
     sum form's intermediate rounding varies with its arguments).  Used
     identically in the jnp oracle (core.sdf._med3); deviation from the
@@ -161,8 +221,8 @@ def _mandelbulb_sd(tbl, i, px, py, pz, power: float, iters: int):
     """Power-8 Mandelbulb distance estimate of leaf ``i`` — the trig-free
     triplex iteration of core.sdf.mandelbulb_sd (same guards, same masked
     escape; see scene.csg.Mandelbulb for the algebra), unrolled at trace
-    time.  All ops are VPU elementwise (mul/add/sqrt/log/min/max) — no
-    transcendental the Mosaic compiler lacks."""
+    time.  All ops are elementwise (mul/add/sqrt/log/min/max) — no
+    transcendental a kernel lowering might lack."""
     del power
     cx, cy, cz = tbl[i, 0], tbl[i, 1], tbl[i, 2]
     size = tbl[i, 3]
@@ -214,7 +274,7 @@ class _Jet:
     the Mandelbox fold is simple enough that _mandelbox_sd_grad writes its
     Jacobian rows out by hand, the bulb's degree-8 polynomial is not).
     Everything stays trace-time Python over jnp vectors, so the kernel
-    sees only elementwise VPU ops."""
+    sees only elementwise vector ops."""
 
     __slots__ = ("v", "tx", "ty", "tz")
 
@@ -431,7 +491,8 @@ _PROC_GRAD_KERNEL = {"mb": _mandelbox_sd_grad, "bulb": _mandelbulb_sd_grad,
 
 
 def _prim_sd(ptype, tbl, i, px, py, pz):
-    """Distance of primitive ``i`` (scalars from SMEM) to rays (vectors).
+    """Distance of primitive ``i`` (scalars from the table) to rays
+    (vectors).
     ``ptype``: int PrimType, or (kind, param, iters) for procedural runs
     (kind "mb" Mandelbox / "bulb" Mandelbulb)."""
     if isinstance(ptype, tuple):
@@ -453,31 +514,16 @@ def _prim_sd(ptype, tbl, i, px, py, pz):
 # Groups at least this large get the per-tile base-bound cull.
 _CULL_MIN_GROUP = 8
 
-# Primitive tables up to this many rows live in SMEM (scalar memory);
-# larger scenes spill the table to VMEM (P=1024 compiles, P=2048 overflows
-# SMEM on v5e — measured).  VMEM scalar loads are slower but keep big
-# scenes on the kernel path.
-_SMEM_PRIM_LIMIT = 1024
-
-
-def _tbl_spec(num_prims: int) -> pl.BlockSpec:
-    space = pltpu.SMEM if num_prims <= _SMEM_PRIM_LIMIT else pltpu.VMEM
-    return pl.BlockSpec(memory_space=space)
-
-
-# Manual unroll factor for the primitive loops (Mosaic supports only full
-# or no fori unrolling, so we block by hand: fewer loop-carried branches,
-# scalar loads pipeline ahead of the vector ops).
+# Manual unroll factor for the primitive loops (the Triton lowering takes
+# no partial ``fori_loop`` unroll, so we block by hand: fewer
+# loop-carried branches, scalar loads issue ahead of the vector ops).
+# Untuned on the GPU.
 _UNROLL = 4
 
 # March steps per early-exit check: the all-converged test is a
-# vector->scalar reduction that serializes against the VPU pipeline, so it
-# runs every K steps instead of every step.  Converged lanes are frozen by
-# the mask either way, so up to K-1 extra masked iterations change nothing.
-# r3 measured K=8 neutral vs 4; after the r4 gather sweep the cheaper
-# frame tipped it: K=8 is +1.3% on the fused headline (one-process sweep,
-# 91.6 vs 90.4 Mrays/s; K=16 regresses to 82 — the extra masked steps
-# overtake the saved reduces).
+# block-wide reduction, so it runs every K steps instead of every step.
+# Converged lanes are frozen by the mask either way, so up to K-1 extra
+# masked iterations change nothing.  Untuned on the GPU.
 _EXIT_CHECK_EVERY = 8
 
 
@@ -633,7 +679,7 @@ def _bvh_group_fold(kp, g, tbl, px, py, pz, state, fold_runs_fn, value_of,
                 jnp.abs(px - tbl[r, 0]) - tbl[r, 3],
                 jnp.abs(py - tbl[r, 1]) - tbl[r, 4]),
                 jnp.abs(pz - tbl[r, 2]) - tbl[r, 5])
-            skip = jnp.all(lb >= value_of(st))
+            skip = _all_lanes(lb >= value_of(st))
             if _BVH_MODE == "testsonly":
                 # keep lb + the reduce + the cond live without folding
                 return jax.lax.cond(
@@ -647,10 +693,10 @@ def _bvh_group_fold(kp, g, tbl, px, py, pz, state, fold_runs_fn, value_of,
         # chunk starts/rows are affine in the chunk ordinal (the splitter
         # emits _BVH_CHUNK-strided spans; only the final chunk can be
         # short), so the walk is ONE fori whose body holds one traced
-        # cond — the proven compile-scaling pattern.  scatter1k traced
-        # ~1,024 unrolled leaf steps + 32 conds per fold instance before
-        # this (cold compile 41 s, r5 verdict #3); results are identical
-        # (same tests, same order — only trace size changes).
+        # cond — the compile-scaling pattern (an unrolled walk traces
+        # ~1,024 leaf steps + 32 conds per fold instance on scatter1k);
+        # results are identical (same tests, same order — only trace
+        # size changes).
         s0, c0 = chunks[0]
         uni = _uniform_prefix(chunks)
         obase = _span_order_base(kp, g, ri) if ordered else None
@@ -677,9 +723,7 @@ def _bvh_group_fold(kp, g, tbl, px, py, pz, state, fold_runs_fn, value_of,
                 # ties): chunk ordinals come from the live
                 # nearest-camera order rows (_build_table), so the
                 # running min tightens immediately and the later — far —
-                # chunks' proof-gated skips actually fire.  scatter1k
-                # measured 62% of chunk-fold work still live under
-                # leaf-order walking (ab mode=testsonly decomposition).
+                # chunks' proof-gated skips actually fire.
                 def body(k, st, _row0=row0, _s0=s0, _c0=c0,
                          _ob=obase):
                     oid = tbl[_ob + k, 0].astype(jnp.int32)
@@ -713,13 +757,10 @@ def _uniform_prefix(chunks) -> int:
     return uni
 
 
-# Module switches for A/B harnesses (ordered vs leaf-order value walk;
-# representative-seeded running min).  Seeding measured NEGATIVE on
-# scatter1k (ab_seed_r5.json: seed+ordered 1.386 vs ordered-only 1.415
-# Mrays/s fwd+bwd — the 31 unconditional representative folds cost more
-# than the extra skips they enable once the walk is already
-# nearest-first), so it stays off; the switch + code remain for future
-# scenes with more chunks.
+# Module switches (ordered vs leaf-order value walk; representative-seeded
+# running min).  Seeding stays off: once the walk is nearest-first, the
+# unconditional representative folds cost more than the extra skips they
+# enable (previous hardware; unmeasured on the GPU).
 _BVH_ORDERED = True
 _BVH_SEED = False
 
@@ -752,7 +793,7 @@ def _menger_carve_lattice(tbl, g, px, py, pz):
     ``min over a (y,z) column = median(min_x bx, by, bz)`` holds BITWISE:
     the collapsed median sees the winning cross's exact excess values.
     Demo-scene level 2: 27 axis values + 64 column medians instead of 400
-    19-op cross evaluations (~7x fewer VPU ops), no conds, no reduces.
+    19-op cross evaluations (~7x fewer vector ops), no conds, no reduces.
 
     Only valid while the live rows actually share coordinates; callers
     gate on the _lattice_ok flag (tbl flag row) and fall back to the full
@@ -833,7 +874,7 @@ def _subtree_recurses(g) -> bool:
     need the Menger offset rows in the table, _build_table)?  Recursion
     pays per CHILD cell, so the threshold applies to the child size
     (T-1)//20, not the subtree total: at (T-1)//20 == 1 the fori would
-    guard single crosses — the measured wash the threshold exists for."""
+    guard single crosses — a wash the threshold exists for."""
     sub = _menger_subtrees(g)
     if sub is None:
         return False
@@ -860,7 +901,7 @@ def _menger_subtree_fold(kp, tbl, g, px, py, pz, carry, fold_fn, value_of):
     whose body holds a single traced ``lax.cond`` — NOT 400 unrolled
     conds, which took XLA minutes to compile.  The child-cell centre
     offsets ride in the table's Menger offset rows (_build_table) so the
-    fori body can fetch them by traced index (the same dynamic SMEM reads
+    fori body can fetch them by traced index (the same dynamic scalar reads
     the run folds already use), and the child folds run from traced row
     starts (_fold_span_dynamic).  For iters=4 a tile near the surface
     touches a handful of level-2 cells and folds ~21 crosses per live
@@ -905,7 +946,7 @@ def _menger_subtree_fold(kp, tbl, g, px, py, pz, carry, fold_fn, value_of):
                                        value_of, c, _ox, _oy, _oz,
                                        _start, T, third)
 
-        skip = jnp.all(lb >= value_of(carry))
+        skip = _all_lanes(lb >= value_of(carry))
         carry = jax.lax.cond(skip, lambda c: c, with_subtree, carry)
     return carry
 
@@ -937,7 +978,7 @@ def _menger_level2_walk(kp, tbl, px, py, pz, fold_fn, value_of, c,
         def live(c3):
             return fold_fn(((int(PrimType.CROSS), start2, sub2, 1),), c3)
 
-        skip2 = jnp.all(lb2 >= value_of(cc))
+        skip2 = _all_lanes(lb2 >= value_of(cc))
         return jax.lax.cond(skip2, lambda c3: c3, live, cc)
 
     return jax.lax.fori_loop(0, 20, body, c)
@@ -1075,11 +1116,10 @@ def _subtree_collapse_eval(tbl, b0, px, py, pz, c):
 def _menger_subtree_collapsed(kp, tbl, g, px, py, pz, init):
     """Value-only iters=4 carve: every level-1 subtree folds through the
     two-level lattice collapse UNCONDITIONALLY — one fori, zero skip
-    tests.  r5 measured the guarded version (level-1 margin bound + cond
-    per subtree, the r4 design) SLOWER than just collapsing all 20
-    (menger4 forward 10.83 vs 11.18 Mrays/s one-process A/B): the 20
-    all-lane margin reduces + conds cost more than the ~17 subtree
-    collapses they skip.  The collapse lesson, completed: collapse the
+    tests.  The guarded version (level-1 margin bound + cond per subtree)
+    was slower on the previous hardware: the 20 all-lane margin reduces +
+    conds cost more than the ~17 subtree collapses they skip (unmeasured
+    on the GPU).  The collapse lesson, completed: collapse the
     math AND drop the last guard level.  Bitwise-identical either way
     (min is exact selection; the skip was exactness-preserving).
 
@@ -1120,8 +1160,7 @@ def _menger_subtree_vbound_fold(kp, tbl, g, px, py, pz, carry, fold_fn,
     whole 421-cross idx/grad fold for ~490 ops.  A subtree that survives
     BOTH bounds (typically only the one holding the winner) descends via
     the level-2 margin walk of _menger_subtree_fold — folding ~21-cross
-    live cells instead of 421 flat crosses (the flat fold measured the
-    A/B at only +8%; live subtrees dominated).  One fori whose body
+    live cells instead of 421 flat crosses.  One fori whose body
     holds the nested conds (the proven compile-scaling pattern; subtree
     starts are affine in the counter, child offsets ride the table's
     Menger offset rows).
@@ -1157,10 +1196,10 @@ def _menger_subtree_vbound_fold(kp, tbl, g, px, py, pz, carry, fold_fn,
                                            value_of, c3, ox, oy, oz, b0,
                                            T, third)
 
-            skip_m = jnp.all(m_j >= value_of(c2))
+            skip_m = _all_lanes(m_j >= value_of(c2))
             return jax.lax.cond(skip_m, lambda c3: c3, live, c2)
 
-        skip = jnp.all(lb >= value_of(c))
+        skip = _all_lanes(lb >= value_of(c))
         return jax.lax.cond(skip, lambda c2: c2, margin_live, c)
 
     return jax.lax.fori_loop(0, 20, body, carry)
@@ -1349,7 +1388,7 @@ def _menger_carve(tbl, box_idx: int, iters: int, px, py, pz, dtype):
         carve = jnp.minimum(carve, _cross_sd_q(qx, qy, qz, csize * 0.5))
         if k + 1 < iters:
             def fold(q, _p=pitch):
-                cell = jnp.clip(jnp.round(q / _p), -1.0, 1.0)
+                cell = _round_clip1(q / _p)
                 return q - cell * _p
             qx, qy, qz = fold(qx), fold(qy), fold(qz)
             pitch = pitch / 3.0
@@ -1423,19 +1462,20 @@ class _TableView:
         return self._tbl[key]
 
 
-# Preload at most this many scalars (register/SMEM pressure guard).
+# Preload at most this many scalars (register pressure guard).  Untuned
+# on the GPU.
 _PRELOAD_LIMIT = 256
 
-# Apply the per-tile cull to fused generator groups: OFF — the folded
-# carve is only ~30 vector ops, and the cull's all-lanes reduce + lax.cond
-# measures 14% SLOWER than just evaluating it (the cull stays essential
-# for exact-table groups, where it skips 400+ primitive folds).
+# Apply the per-block cull to fused generator groups: OFF — the folded
+# carve is only ~30 vector ops, about what the cull's block-wide reduce +
+# lax.cond costs (the cull stays essential for exact-table groups, where
+# it skips 400+ primitive folds).  Untuned on the GPU.
 _CULL_FUSED = False
 
-# Apply the per-tile cull to lattice-collapsed groups: the collapsed carve
-# is ~7x cheaper than the full fold, which shrinks what the cull can save
-# while its all-lanes reduce + cond cost is unchanged (same trade as
-# _CULL_FUSED, measured on hardware — see docs/DESIGN.md perf notes).
+# Apply the per-block cull to lattice-collapsed groups: the collapsed
+# carve is ~7x cheaper than the full fold, which shrinks what the cull can
+# save while its reduce + cond cost is unchanged (same trade as
+# _CULL_FUSED).  Untuned on the GPU.
 _CULL_LATTICE = False
 
 
@@ -1696,7 +1736,7 @@ def _scene_sd_tile(kp, tbl, px, py, pz, dtype, fused=False):
                     gmin = _fold_runs(tbl, _runs, px, py, pz, _base)
                     return jnp.minimum(r, -gmin)
 
-            skip = jnp.all(lb >= running)
+            skip = _all_lanes(lb >= running)
             running = jax.lax.cond(skip, lambda r: r, with_rest, running)
         elif g.bvh is not None:
             # wide-UNION chunk cull: gsign == +1 under a MIN root (the
@@ -1713,14 +1753,89 @@ def _scene_sd_tile(kp, tbl, px, py, pz, dtype, fused=False):
     return rsign * running
 
 
+def march_values(kp, tbl, ox, oy, oz, dx, dy, dz, iterations: int,
+                 eps: float, fused: bool, tmax=None, soft_k=None,
+                 init_done=None, with_steps: bool = False):
+    """March one ray block of vectors -> (px, py, pz, sd, done-mask), then
+    the penumbra factor when ``soft_k`` is set and the per-ray step count
+    when ``with_steps``.
+
+    ``tmax`` (shadow rays): the march also terminates once the accumulated
+    distance passes the per-ray target — EXACT for the shadow boolean (see
+    core.shading.shadowed): any endpoint at/beyond the light is 'lit' and
+    the reference march only moves forward.  ``soft_k``: track min over
+    steps of clamp(soft_k * sd / t, 0, 1) (same formula as
+    core.shading._soft_step).  ``init_done``: boolean lanes whose result
+    is not needed (e.g. shadow rays of provably-black pixels) start
+    pre-converged: zero field evals, never a straggler; they return
+    p = origin, sd = +inf, done = 1.
+
+    Early exit is per block: the all-done test runs every
+    K = _EXIT_CHECK_EVERY steps, the remainder runs after the loop so the
+    TOTAL evaluation cap stays exactly ``iterations`` (reference parity for
+    never-converging rays, scene.cpp:35), and done lanes are frozen by the
+    mask, so extra masked steps change nothing.  The loop is a
+    ``fori_loop`` over K-step blocks whose body skips once all lanes are
+    done — not a ``while_loop``: the Triton compiler shipped with JAX 0.9
+    crashes on a ``scf.while`` that carries a block-reduced flag.  The K
+    steps are a loop too, so the scene fold is traced once per march
+    (kernel compile time grows with program size)."""
+    dtype = dx.dtype
+    shape = dx.shape
+    soft = soft_k is not None
+
+    def step(st):
+        px, py, pz, sd_prev, done, pen, steps = st
+        sd = _scene_sd_tile(kp, tbl, px, py, pz, dtype, fused=fused)
+        active = done < 0.5
+        if with_steps:
+            steps = steps + jnp.where(active, 1.0, 0.0)
+        if soft:
+            t_cur = (px - ox) * dx + (py - oy) * dy + (pz - oz) * dz
+            ratio = jnp.clip(soft_k * sd / jnp.maximum(t_cur, eps),
+                             0.0, 1.0)
+            pen = jnp.where(active, jnp.minimum(pen, ratio), pen)
+        length = jnp.where(active, jnp.minimum(sd, MAX_STEP), 0.0)
+        px = px + length * dx
+        py = py + length * dy
+        pz = pz + length * dz
+        sd_new = jnp.where(active, sd, sd_prev)
+        done = jnp.where(sd_new < eps, 1.0, done)
+        if tmax is not None:
+            # t = (p - o) . d  (directions are unit-length)
+            t = (px - ox) * dx + (py - oy) * dy + (pz - oz) * dz
+            done = jnp.where(t >= tmax, 1.0, done)
+        return (px, py, pz, sd_new, done, pen, steps)
+
+    # f32 done mask: 0 = active
+    done0 = (jnp.zeros(shape, dtype) if init_done is None
+             else jnp.where(init_done, 1.0, 0.0).astype(dtype))
+    st = (jnp.broadcast_to(ox, shape), jnp.broadcast_to(oy, shape),
+          jnp.broadcast_to(oz, shape), jnp.full(shape, jnp.inf, dtype),
+          done0, jnp.ones(shape, dtype) if soft else None,
+          jnp.zeros(shape, dtype) if with_steps else None)
+
+    K = min(_EXIT_CHECK_EVERY, max(iterations, 1))
+    blocks, rem = divmod(iterations, K)
+
+    def run_k(s):
+        return jax.lax.fori_loop(0, K, lambda _, x: step(x), s)
+
+    def block(_, s):
+        return jax.lax.cond(jnp.min(s[4]) > 0.5, lambda x: x, run_k, s)
+
+    if blocks:
+        st = jax.lax.fori_loop(0, blocks, block, st)
+    for _ in range(rem):
+        st = step(st)
+    return (st[:5] + ((st[5],) if soft else ())
+            + ((st[6],) if with_steps else ()))
+
+
 def _march_kernel(kp: KernelPlan, iterations: int, eps: float,
                   has_tmax: bool, fused: bool, with_steps: bool, *refs):
-    """March one ray tile.  With ``has_tmax`` (shadow rays) the march also
-    terminates once the accumulated distance passes the per-ray target —
-    EXACT for the shadow boolean (see core.shading.shadowed): any endpoint
-    at/beyond the light is 'lit' and the reference march only moves
-    forward.  ``with_steps`` adds a per-ray iteration counter output
-    (observability; zero cost when off)."""
+    """March one ray block (march_values) from ray-stream refs; optional
+    per-ray ``tmax`` input and step-count output."""
     refs = list(refs)
     steps_ref = refs.pop() if with_steps else None
     if has_tmax:
@@ -1729,79 +1844,16 @@ def _march_kernel(kp: KernelPlan, iterations: int, eps: float,
     else:
         (tbl_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
          px_ref, py_ref, pz_ref, sd_ref, done_ref) = refs
+    # loop-invariant loads happen once, before the march loop
+    out = march_values(kp, preload_table(kp, tbl_ref, fused),
+                       ox_ref[...], oy_ref[...], oz_ref[...],
+                       dx_ref[...], dy_ref[...], dz_ref[...], iterations,
+                       eps, fused, tmax=tmax_ref[...] if has_tmax else None,
+                       with_steps=with_steps)
+    (px_ref[...], py_ref[...], pz_ref[...], sd_ref[...],
+     done_ref[...]) = out[:5]
     if with_steps:
-        steps_ref[...] = jnp.zeros(ox_ref.shape, jnp.float32)
-    dtype = ox_ref.dtype
-    # hoist loop-invariant loads out of the march loop: the table's
-    # scalars AND the direction/origin tiles (r5 march_decomp: the loop
-    # body re-loaded them from VMEM every step)
-    tbl_ref = preload_table(kp, tbl_ref, fused)
-    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
-    if has_tmax:
-        ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
-        tmaxv = tmax_ref[...]
-    px_ref[...] = ox_ref[...]
-    py_ref[...] = oy_ref[...]
-    pz_ref[...] = oz_ref[...]
-    sd_ref[...] = jnp.full(ox_ref.shape, jnp.inf, dtype)
-    done_ref[...] = jnp.zeros(ox_ref.shape, dtype)   # f32 mask: 0 = active
-
-    # K steps per while iteration; the remainder runs unrolled after the
-    # loop so the TOTAL evaluation cap stays exactly ``iterations``
-    # (reference parity for never-converging rays, scene.cpp:35).
-    K = min(_EXIT_CHECK_EVERY, max(iterations, 1))
-    main = (iterations // K) * K
-
-    def cond(carry):
-        it, all_done = carry
-        return jnp.logical_and(it < main, jnp.logical_not(all_done))
-
-    def step_local(st):
-        # one march step on register-resident state (identical arithmetic
-        # and op order to the r4 per-step-scratch body — bitwise-equal
-        # results; only the memory movement changed, march_decomp_r5)
-        px, py, pz, sd_prev, done, steps = st
-        sd = _scene_sd_tile(kp, tbl_ref, px, py, pz, dtype, fused=fused)
-        active = done < 0.5
-        if with_steps:
-            steps = steps + jnp.where(active, 1.0, 0.0)
-        step = jnp.where(active, jnp.minimum(sd, MAX_STEP), 0.0)
-        px = px + step * dx
-        py = py + step * dy
-        pz = pz + step * dz
-        sd_new = jnp.where(active, sd, sd_prev)
-        done_new = jnp.where(sd_new < eps, 1.0, done)
-        if has_tmax:
-            # t = (p - o) . d  (directions are unit-length)
-            t = (px - ox) * dx + (py - oy) * dy + (pz - oz) * dz
-            done_new = jnp.where(t >= tmaxv, 1.0, done_new)
-        return (px, py, pz, sd_new, done_new, steps)
-
-    def read():
-        return (px_ref[...], py_ref[...], pz_ref[...], sd_ref[...],
-                done_ref[...],
-                steps_ref[...] if with_steps else None)
-
-    def write(st):
-        (px_ref[...], py_ref[...], pz_ref[...], sd_ref[...],
-         done_ref[...]) = st[:5]
-        if with_steps:
-            steps_ref[...] = st[5]
-
-    def body(carry):
-        it, _ = carry
-        st = read()
-        for _ in range(K):
-            st = step_local(st)
-        write(st)
-        return it + K, jnp.min(st[4]) > 0.5
-
-    jax.lax.while_loop(cond, body, (jnp.int32(0), jnp.asarray(False)))
-    if iterations - main:
-        st = read()
-        for _ in range(iterations - main):
-            st = step_local(st)
-        write(st)
+        steps_ref[...] = out[5]
 
 
 def _flag_row(kp) -> int:
@@ -1813,7 +1865,8 @@ def _flag_row(kp) -> int:
 
 
 def _build_table(tables: SceneTables, kp=None) -> jnp.ndarray:
-    """[P+1(+B), 8] SMEM-resident primitive table: centre xyz, aux xyz,
+    """[P+1(+B), 8] primitive table (one global-memory ref read by scalar
+    loads in every kernel): centre xyz, aux xyz,
     padding; one trailing FLAG row — column 0 carries the lattice-validity
     bit (lattice_ok) so kernels can gate the collapsed Menger fold without
     any extra operand plumbing.
@@ -1890,57 +1943,45 @@ def _build_table(tables: SceneTables, kp=None) -> jnp.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _compiled_call(kp: KernelPlan, iterations: int, eps: float,
-                   tile_sublanes: int, num_tiles: int, has_tmax: bool,
-                   fused: bool, num_prims: int, with_steps: bool,
-                   interpret: bool):
-    rows = num_tiles * tile_sublanes
-    block = (tile_sublanes, LANES)
-    ray_spec = pl.BlockSpec(block, lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    out_shape = jax.ShapeDtypeStruct((rows, LANES), jnp.float32)
-
+                   ray_block: int, num_blocks: int, has_tmax: bool,
+                   fused: bool, with_steps: bool, interpret: bool):
+    f32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.float32)
     n_ray_inputs = 7 if has_tmax else 6
     n_outputs = 6 if with_steps else 5
     kernel = functools.partial(_march_kernel, kp, iterations, eps, has_tmax,
                                fused, with_steps)
-    return pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=([_tbl_spec(num_prims)]
-                  + [ray_spec] * n_ray_inputs),
-        out_specs=(ray_spec,) * n_outputs,
-        out_shape=(out_shape,) * n_outputs,
-        interpret=interpret,
-    )
+    return _kernel_call(kernel, num_blocks, ray_block,
+                        ["any"] + ["ray"] * n_ray_inputs, (f32,) * n_outputs,
+                        interpret)
 
 
-def _tiling(R: int, tile_sublanes: int):
-    tile = tile_sublanes * LANES
-    num_tiles = max(1, -(-R // tile))
-    padded = num_tiles * tile
+def _tiling(R: int, ray_block: int):
+    """(num_blocks, prep, unprep) for a flat batch of ``R`` rays cut into
+    1-D blocks of ``ray_block`` lanes."""
+    _check_block(ray_block)
+    num_blocks = max(1, -(-R // ray_block))
+    padded = num_blocks * ray_block
 
     def prep(v):
         # edge-pad: padding lanes replay the last real ray, so they converge
-        # with it and never hold a tile's early exit hostage
-        v = jnp.pad(v, ((0, padded - R),), mode="edge")
-        return v.reshape(num_tiles * tile_sublanes, LANES)
+        # with it and never hold a block's early exit hostage
+        return jnp.pad(v, ((0, padded - R),), mode="edge")
 
     def unprep(v):
-        return v.reshape(padded)[:R]
+        return v[:R]
 
-    return num_tiles, prep, unprep
+    return num_blocks, prep, unprep
 
 
 def pallas_march(kp: KernelPlan, iterations: int, eps: float,
-                 tile_sublanes: int, origin: jnp.ndarray, ray: jnp.ndarray,
+                 ray_block: int, origin: jnp.ndarray, ray: jnp.ndarray,
                  tables: SceneTables, *, tmax=None, fused: bool = False,
-                 with_steps: bool = False,
-                 interpret: bool = False):
+                 with_steps: bool = False, interpret=None):
     """March a flat batch of rays. origin/ray: [R, 3] -> MarchResult.
     ``tmax`` [R] (optional): stop rays once they pass this distance.
     ``with_steps``: also return per-ray iteration counts [R]."""
     R = origin.shape[0]
-    num_tiles, prep, unprep = _tiling(R, tile_sublanes)
+    num_blocks, prep, unprep = _tiling(R, ray_block)
 
     comps = [prep(origin[:, a]) for a in range(3)]
     comps += [prep(ray[:, a]) for a in range(3)]
@@ -1948,10 +1989,9 @@ def pallas_march(kp: KernelPlan, iterations: int, eps: float,
         comps.append(prep(tmax))
     tbl = _build_table(tables, kp)
 
-    call = _compiled_call(kp, iterations, eps, tile_sublanes, num_tiles,
-                          tmax is not None, fused,
-                          int(tables.prim_pos.shape[0]), with_steps,
-                          interpret)
+    call = _compiled_call(kp, iterations, eps, ray_block, num_blocks,
+                          tmax is not None, fused, with_steps,
+                          resolve_interpret(interpret))
     outs = call(tbl, *comps)
     if with_steps:
         px, py, pz, sd, done, steps = outs
@@ -2112,7 +2152,7 @@ def _menger_carve_grad(tbl, box_idx: int, iters: int, px, py, pz, dtype):
         gz = jnp.where(better, jnp.where(med_z, jnp.sign(qz), 0.0), gz)
         if k + 1 < iters:
             def fold(q, _p=pitch):
-                cell = jnp.clip(jnp.round(q / _p), -1.0, 1.0)
+                cell = _round_clip1(q / _p)
                 return q - cell * _p
             qx, qy, qz = fold(qx), fold(qy), fold(qz)
             pitch = pitch / 3.0
@@ -2346,7 +2386,7 @@ def _scene_sd_grad_tile(kp: KernelPlan, tbl, px, py, pz, dtype,
                         -jnp.where(take_base, _b[2], cgy),
                         -jnp.where(take_base, _b[3], cgz))
 
-                skip = jnp.all(lb >= state[0])
+                skip = _all_lanes(lb >= state[0])
                 state = jax.lax.cond(skip, lambda s: s, with_rest, state)
             else:
                 carve, cgx, cgy, cgz = lattice_grad(0)
@@ -2378,7 +2418,7 @@ def _scene_sd_grad_tile(kp: KernelPlan, tbl, px, py, pz, dtype,
                         tbl, _runs, px, py, pz, init4)
                     return root_update(s, -gmin, -ggx, -ggy, -ggz)
 
-            skip = jnp.all(lb >= state[0])
+            skip = _all_lanes(lb >= state[0])
             state = jax.lax.cond(skip, lambda s: s, with_group, state)
         elif g.bvh is not None:
             # wide-UNION chunk cull (gsign +1, MIN root): direct fold into
@@ -2550,7 +2590,7 @@ def _scene_sd_idx_grad_tile(kp: KernelPlan, tbl, px, py, pz, dtype,
                                                 init)
                     return root_update(s, -1, carry)
 
-            skip = jnp.all(lb >= state[0])
+            skip = _all_lanes(lb >= state[0])
             state = jax.lax.cond(skip, lambda s: s, with_group, state)
         elif g.bvh is not None:
             # wide-UNION chunk cull (gsign +1, MIN root): direct fold into
@@ -2633,7 +2673,7 @@ def _scene_sd_idx_tile(kp: KernelPlan, tbl, px, py, pz, dtype, fused=False):
                         (inf, jnp.full(px.shape, -1, jnp.int32)))
                     return root_update(r, ri, float(-1) * gmin, gidx)
 
-            skip = jnp.all(lb >= running)
+            skip = _all_lanes(lb >= running)
             running, ridx = jax.lax.cond(skip, lambda c: c, with_group,
                                          (running, ridx))
         elif g.bvh is not None:
@@ -2708,48 +2748,36 @@ def _surface_kernel(kp: KernelPlan, fd_h: float, with_color: bool,
 @functools.lru_cache(maxsize=64)
 def _compiled_surface_call(kp: KernelPlan, fd_h: float, with_color: bool,
                            with_normal: bool, fused: bool, analytic: bool,
-                           tile_sublanes: int, num_tiles: int,
-                           num_prims: int, interpret: bool):
-    rows = num_tiles * tile_sublanes
-    block = (tile_sublanes, LANES)
-    ray_spec = pl.BlockSpec(block, lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((rows, LANES), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((rows, LANES), jnp.int32)
-
+                           ray_block: int, num_blocks: int,
+                           interpret: bool):
+    f32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.float32)
+    i32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.int32)
     out_shape = [f32]
     if with_color:
         out_shape.append(i32)
     if with_normal:
         out_shape += [f32, f32, f32]
-
     kernel = functools.partial(_surface_kernel, kp, fd_h, with_color,
                                with_normal, fused, analytic)
-    return pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[_tbl_spec(num_prims)] + [ray_spec] * 3,
-        out_specs=tuple(ray_spec for _ in out_shape),
-        out_shape=tuple(out_shape),
-        interpret=interpret,
-    )
+    return _kernel_call(kernel, num_blocks, ray_block,
+                        ["any", "ray", "ray", "ray"], out_shape, interpret)
 
 
-def pallas_surface_eval(kp: KernelPlan, fd_h: float, tile_sublanes: int,
+def pallas_surface_eval(kp: KernelPlan, fd_h: float, ray_block: int,
                         p: jnp.ndarray, tables: SceneTables, *,
                         with_color: bool, with_normal: bool,
                         fused: bool = False, analytic: bool = False,
-                        interpret: bool = False):
+                        interpret=None):
     """Evaluate the scene at points p [R, 3].
 
     Returns (sd [R], color_idx [R] or None, grad [R, 3] or None)."""
     R = p.shape[0]
-    num_tiles, prep, unprep = _tiling(R, tile_sublanes)
+    num_blocks, prep, unprep = _tiling(R, ray_block)
     comps = [prep(p[:, a]) for a in range(3)]
     tbl = _build_table(tables, kp)
     call = _compiled_surface_call(kp, fd_h, with_color, with_normal, fused,
-                                  analytic, tile_sublanes, num_tiles,
-                                  int(tables.prim_pos.shape[0]), interpret)
+                                  analytic, ray_block, num_blocks,
+                                  resolve_interpret(interpret))
     outs = list(call(tbl, *comps))
     sd = unprep(outs.pop(0))
     cidx = unprep(outs.pop(0)) if with_color else None
@@ -2760,7 +2788,7 @@ def pallas_surface_eval(kp: KernelPlan, fd_h: float, tile_sublanes: int,
 
 
 def make_pallas_march(plan: ScenePlan, cfg: RenderConfig,
-                      *, interpret: bool = False) -> Callable:
+                      *, interpret=None) -> Callable:
     """forward_impl for ops.march_op: (origin, ray, tables) -> MarchResult.
 
     Depth<=2 scenes (every reference scene) compile the two-level normal
@@ -2771,7 +2799,7 @@ def make_pallas_march(plan: ScenePlan, cfg: RenderConfig,
     def forward_impl(origin, ray, tables):
         shape = origin.shape
         res = pallas_march(kp, cfg.iterations,
-                           cfg.surface_precision, cfg.tile_sublanes,
+                           cfg.surface_precision, cfg.ray_block,
                            origin.reshape(-1, 3), ray.reshape(-1, 3),
                            tables, fused=cfg.fused_generators,
                            interpret=interpret)

@@ -4,7 +4,7 @@ kernel launch.
 Where ops.pallas_march splits the pipeline into four kernels (march, shadow
 x lights, surface, normal) glued by XLA, this kernel runs the ENTIRE
 reference per-pixel program (scene.cpp:26-32 + render.cpp:104-115) for a
-ray tile without leaving VMEM/registers:
+ray block without leaving registers (one ray per GPU thread):
 
     march -> color index at the pre-step point -> FD normal ->
     per-light shadow march with exact at-light termination -> Lambert
@@ -25,115 +25,15 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import RenderConfig
 from ..core.march import MAX_STEP
+from ..core.sdf import take_rows
 from ..scene.compile import KernelPlan, ScenePlan, SceneTables
-from .pallas_march import (LANES, _build_table, _scene_sd_idx_tile,
-                           _scene_sd_tile, _tbl_spec, _tiling, kernel_key,
-                           preload_table)
-
-
-def _march_values(kp, tbl, ox, oy, oz, dx, dy, dz, iterations, eps, fused,
-                  tmax=None, soft_k=None, init_done=None):
-    """March a tile; state lives in scoped VMEM scratch (Mosaic cannot yet
-    relayout splat-initialized vectors through while-loop carries), the
-    loop carry is scalars only.  Returns (px, py, pz, sd, done-mask)
-    — plus the penumbra tracker min clamp(soft_k * sd / t, 0, 1) when
-    ``soft_k`` is set (shadow rays with cfg.soft_shadow_k > 0; same
-    formula as core.shading._soft_step, t from the position projection
-    the tmax check already computes).
-
-    ``init_done``: optional boolean tile of lanes whose result is not
-    needed (e.g. shadow rays of provably-black pixels) — they start
-    pre-converged: zero field evals, never a straggler, and an all-skipped
-    tile does not enter the loop at all.  Skipped lanes return p = origin,
-    sd = +inf, done = 1."""
-    dtype = dx.dtype
-    shape = dx.shape
-    soft = soft_k is not None
-
-    from .pallas_march import _EXIT_CHECK_EVERY
-
-    def scoped(px_s, py_s, pz_s, sd_s, done_s, *pen_scratch):
-        pen_s = pen_scratch[0] if soft else None
-        px_s[...] = ox + 0.0 * dx   # force a materialized layout
-        py_s[...] = oy + 0.0 * dy
-        pz_s[...] = oz + 0.0 * dz
-        sd_s[...] = jnp.full(shape, jnp.inf, dtype)
-        done0 = (jnp.zeros(shape, dtype) if init_done is None
-                 else jnp.where(init_done, 1.0, 0.0).astype(dtype))
-        done_s[...] = done0
-        if soft:
-            pen_s[...] = jnp.ones(shape, dtype)
-
-        # K steps per exit check (the all-done reduce serializes the VPU);
-        # remainder unrolled after the loop so the evaluation cap stays
-        # exactly ``iterations``.  The K unrolled steps of one while-body
-        # run on register-resident locals and touch scratch once per
-        # block — identical arithmetic and op order to the per-step
-        # scratch body, so results are bitwise-equal (march_decomp_r5).
-        K = min(_EXIT_CHECK_EVERY, max(iterations, 1))
-        main = (iterations // K) * K
-
-        def cond(c):
-            it, all_done = c
-            return jnp.logical_and(it < main, jnp.logical_not(all_done))
-
-        def step_local(st):
-            px, py, pz, sd_prev, done, pen = st
-            sd = _scene_sd_tile(kp, tbl, px, py, pz, dtype, fused=fused)
-            active = done < 0.5
-            if soft:
-                t_cur = ((px - ox) * dx + (py - oy) * dy + (pz - oz) * dz)
-                ratio = jnp.clip(soft_k * sd / jnp.maximum(t_cur, eps),
-                                 0.0, 1.0)
-                pen = jnp.where(active, jnp.minimum(pen, ratio), pen)
-            step = jnp.where(active, jnp.minimum(sd, MAX_STEP), 0.0)
-            px = px + step * dx
-            py = py + step * dy
-            pz = pz + step * dz
-            sd_new = jnp.where(active, sd, sd_prev)
-            done = jnp.where(sd_new < eps, 1.0, done)
-            if tmax is not None:
-                t = ((px - ox) * dx + (py - oy) * dy + (pz - oz) * dz)
-                done = jnp.where(t >= tmax, 1.0, done)
-            return (px, py, pz, sd_new, done, pen)
-
-        def read():
-            return (px_s[...], py_s[...], pz_s[...], sd_s[...],
-                    done_s[...], pen_s[...] if soft else None)
-
-        def write(st):
-            (px_s[...], py_s[...], pz_s[...], sd_s[...],
-             done_s[...]) = st[:5]
-            if soft:
-                pen_s[...] = st[5]
-
-        def body(c):
-            it, _ = c
-            st = read()
-            for _ in range(K):
-                st = step_local(st)
-            write(st)
-            return it + K, jnp.min(st[4]) > 0.5
-
-        jax.lax.while_loop(cond, body,
-                           (jnp.int32(0), jnp.min(done0) > 0.5))
-        if iterations - main:
-            st = read()
-            for _ in range(iterations - main):
-                st = step_local(st)
-            write(st)
-        out = (px_s[...], py_s[...], pz_s[...], sd_s[...], done_s[...])
-        return out + ((pen_s[...],) if soft else ())
-
-    return pl.run_scoped(
-        scoped, *(pltpu.VMEM(shape, jnp.float32)
-                  for _ in range(6 if soft else 5)))
+from .pallas_march import (_build_table, _kernel_call, _scene_sd_idx_tile,
+                           _scene_sd_tile, _tiling, kernel_key, march_values,
+                           preload_table, resolve_interpret)
 
 
 def _split_shade_refs(out_refs, num_lights: int, colored: bool,
@@ -159,25 +59,21 @@ def _num_shade_refs(num_lights: int, colored: bool, soft: bool,
             + (1 if ao else 0) + (5 if winner else 0))
 
 
-def _raygen_dirs(raygen, cam_ref, tile_sublanes, dtype):
+def _raygen_dirs(raygen, cam_ref, base_ref, ray_block, dtype):
     """In-kernel primary-ray directions for the serving fast path
     (RenderConfig.serve_raygen): invert the block-major ray layout from
-    the tile's absolute ray index to (pixel, SSAA sample) indices and
-    evaluate the camera model right in VMEM — the same math as
+    the lane's absolute ray index to (pixel, SSAA sample) indices and
+    evaluate the camera model in registers — the same math as
     core.camera.generate_rays (corner-biased (i+1, j+1)/k sample offsets
     render.cpp:104-105, screen-rect lerp, normalize, rotate; z = -1 so
     the norm's z^2 term is exactly 1).  Kills the jnp raygen pass, the
-    to_blocked reorder, and the [R, 3] HBM dirs stream from serving
-    frames (~1.4 ms of a 6.9 ms forward frame).  ``cam_ref`` rows come
-    from _serve_cam_rows; ray indices ride f32 SMEM and are exact below
-    2^24 — api gates on that."""
+    to_blocked reorder, and the [R, 3] dirs stream from serving frames.
+    ``cam_ref`` rows come from _serve_cam_rows; the chunk's first ray
+    index arrives as an int32 scalar in ``base_ref``."""
     W, H, k, bh, bw = raygen
     S = k * k
-    shape = (tile_sublanes, LANES)
-    base = cam_ref[0, 5].astype(jnp.int32)
-    ri = (base + pl.program_id(0) * (tile_sublanes * LANES)
-          + jax.lax.broadcasted_iota(jnp.int32, shape, 0) * LANES
-          + jax.lax.broadcasted_iota(jnp.int32, shape, 1))
+    ri = (base_ref[0] + pl.program_id(0) * ray_block
+          + jax.lax.broadcasted_iota(jnp.int32, (ray_block,), 0))
     s = ri % S
     t1 = ri // S
     if bh:
@@ -221,12 +117,12 @@ def _render_kernel(kp: KernelPlan, iterations: int, eps: float,
         gate_ref, in_refs = in_refs[0], in_refs[1:]
     if raygen is not None:
         assert not per_ray_org, "serve raygen is pinhole-only"
-        org_ref, cam_ref = in_refs[:2]
+        org_ref, cam_ref, base_ref = in_refs[:3]
         dx_ref = dy_ref = dz_ref = None
-        out_refs = in_refs[2:]
+        out_refs = in_refs[3:]
     elif per_ray_org:
         # arbitrary ray bundles (api.render_rays / batched animation
-        # frames): each lane carries its own origin in VMEM
+        # frames): each lane carries its own origin stream
         ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref = in_refs[:6]
         out_refs = in_refs[6:]
     else:
@@ -257,8 +153,8 @@ def _render_kernel(kp: KernelPlan, iterations: int, eps: float,
     # hoist loop-invariant scalar loads out of every march/eval below
     tbl_ref = preload_table(kp, tbl_ref, fused)
     if raygen is not None:
-        ts = out_refs[0].shape[0]
-        dx, dy, dz = _raygen_dirs(raygen, cam_ref, ts, dtype)
+        dx, dy, dz = _raygen_dirs(raygen, cam_ref, base_ref,
+                                  out_refs[0].shape[0], dtype)
     else:
         dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
     if per_ray_org:
@@ -269,8 +165,8 @@ def _render_kernel(kp: KernelPlan, iterations: int, eps: float,
         oz = jnp.full(dx.shape, org_ref[2], dtype)
 
     # 1. primary march
-    px, py, pz, sd, done = _march_values(kp, tbl_ref, ox, oy, oz,
-                                         dx, dy, dz, iterations, eps, fused)
+    px, py, pz, sd, done = march_values(kp, tbl_ref, ox, oy, oz,
+                                        dx, dy, dz, iterations, eps, fused)
     px_ref[...], py_ref[...], pz_ref[...] = px, py, pz
     sd_ref[...], done_ref[...] = sd, done
 
@@ -283,8 +179,8 @@ def _render_kernel(kp: KernelPlan, iterations: int, eps: float,
 
     # 2. mirror bounces (RenderConfig.reflect_*): reflect off the shaded
     # hit, push the origin off the surface exactly like a shadow ray, and
-    # re-run the identical march + shade — everything stays in registers/
-    # VMEM; per-bounce shade outputs are blended OUTSIDE the kernel (the
+    # re-run the identical march + shade — everything stays in registers;
+    # per-bounce shade outputs are blended OUTSIDE the kernel (the
     # kernel table carries no primitive colors).  d and n are unit, so the
     # mirrored direction needs no renormalization.
     for b in range(1, 1 + bounces):
@@ -295,7 +191,7 @@ def _render_kernel(kp: KernelPlan, iterations: int, eps: float,
         dz = dz - 2.0 * ddot * nz
         off = eps + offset_eps
         ox, oy, oz = px + nx * off, py + ny * off, pz + nz * off
-        px, py, pz, sd, bdone = _march_values(kp, tbl_ref, ox, oy, oz,
+        px, py, pz, sd, bdone = march_values(kp, tbl_ref, ox, oy, oz,
                                               dx, dy, dz, iterations, eps,
                                               fused)
         gb = bgeom_sets[b - 1]
@@ -312,10 +208,9 @@ def _big_program(kp) -> bool:
     """Is this scene's traced fold big enough that COMPILE time, not ILP,
     is the binding constraint?  Big programs trace repeated scene folds
     (FD stencil points, per-light shadow marches) once and drive them
-    with ``lax.fori_loop`` — Mosaic compile time is superlinear in
-    program size (the demo's lattice-collapsed fold at 1024^2 ssaa3
-    cold-compiled in 87 s with everything unrolled, r3 verdict weak #6).
-    Small scenes stay unrolled for ILP across the independent evals."""
+    with ``lax.fori_loop`` — kernel compile time grows superlinearly
+    with program size.  Small scenes stay unrolled for ILP across the
+    independent evals.  The thresholds are untuned on the GPU."""
     groups = getattr(kp, "groups", None)
     if groups is None:
         return len(getattr(kp, "prim_type", ())) > 64
@@ -348,7 +243,7 @@ def _shade_body(kp: KernelPlan, iterations: int, eps: float,
     color winner is a compile-time-black primitive (or a miss) start their
     shadow marches pre-converged — their pixel is color * light == 0
     whatever light is, so the marches' only effect was wall-clock.  The
-    SMEM gate scalar is the runtime proof that those table rows are still
+    gate scalar is the runtime proof that those table rows are still
     black (computed outside the kernel); 0 disables the skip bitwise."""
     dtype = dx.dtype
     # 2. color index at the pre-step point (scene.cpp:34-42 semantics)
@@ -394,21 +289,20 @@ def _shade_body(kp: KernelPlan, iterations: int, eps: float,
         if _big_program(kp):
             # Big scene programs (lattice collapse, wide tables): trace
             # the scene fold ONCE and fori over the 6 stencil points —
-            # the unrolled stencil was ~60% of the traced kernel and
-            # Mosaic compile time is superlinear in program size (demo
-            # at 1024^2 ssaa3 cold-compiled in 87 s, r3 verdict weak #6).
+            # the unrolled stencil was ~60% of the traced kernel.
             # SAME ESTIMATOR, same adds in the same order (per axis the
             # accumulator sees 0 + e_plus, then + (-e_minus)); compiled
             # output may still differ from the unrolled form by an ulp
-            # where XLA contracts loop bodies differently (measured: 4 of
-            # 576 demo pixels moved ~3e-4 via a last-ulp normal) — within
-            # the cross-backend tolerance contract the suite pins.
+            # where the compiler contracts loop bodies differently —
+            # within the cross-backend tolerance contract the suite pins.
             zero = jnp.zeros(px.shape, dtype)
 
             def stencil(k, acc):
                 gx, gy, gz = acc
-                axis = k // 2
-                sgn = 1.0 - 2.0 * (k % 2).astype(dtype)
+                # shift/mask, not // and %: the Triton lowering mistypes
+                # the scalar remainder inside a loop body
+                axis = jnp.right_shift(k, 1)
+                sgn = 1.0 - 2.0 * jnp.bitwise_and(k, 1).astype(dtype)
                 ox = jnp.where(axis == 0, sgn * h, 0.0)
                 oy = jnp.where(axis == 1, sgn * h, 0.0)
                 oz = jnp.where(axis == 2, sgn * h, 0.0)
@@ -497,7 +391,7 @@ def _shade_body(kp: KernelPlan, iterations: int, eps: float,
             sx, sy, sz = px + nx * off, py + ny * off, pz + nz * off
             t2x, t2y, t2z = lx - sx, ly - sy, lz - sz
             tmax = jnp.sqrt(t2x * t2x + t2y * t2y + t2z * t2z)
-            res = _march_values(
+            res = march_values(
                 kp, tbl_ref, sx, sy, sz, rx, ry, rz, iterations, eps,
                 fused, tmax=tmax, soft_k=soft_k if soft else None,
                 init_done=skip)
@@ -599,33 +493,22 @@ def _compiled_shade_call(kp: KernelPlan, iterations: int, eps: float,
                          analytic: bool, colored: bool, soft_k: float,
                          ao_strength: float, ao_samples: int,
                          ao_delta: float, black_ids, save_winner: bool,
-                         sat_skip: bool, tile_sublanes: int,
-                         num_tiles: int, num_prims: int, interpret: bool):
-    rows = num_tiles * tile_sublanes
-    block = (tile_sublanes, LANES)
-    ray_spec = pl.BlockSpec(block, lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((rows, LANES), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((rows, LANES), jnp.int32)
+                         sat_skip: bool, ray_block: int, num_blocks: int,
+                         interpret: bool):
+    f32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.float32)
+    i32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.int32)
     out_shape = _shade_out_shapes(f32, i32, num_lights, colored,
                                   shadows and soft_k > 0.0,
                                   ao_strength > 0.0, save_winner)
-
     kernel = functools.partial(_shade_kernel, kp, iterations, eps,
                                offset_eps, saturation, fd_h, num_lights,
                                shadows, fused, analytic, colored, soft_k,
                                ao_strength, ao_samples, ao_delta, black_ids,
                                save_winner, sat_skip)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    gate_specs = [smem] if black_ids else []
-    return pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[_tbl_spec(num_prims), smem] + gate_specs + [ray_spec] * 7,
-        out_specs=(ray_spec,) * len(out_shape),
-        out_shape=out_shape,
-        interpret=interpret,
-    )
+    gate = ["any"] if black_ids else []
+    return _kernel_call(kernel, num_blocks, ray_block,
+                        ["any", "any"] + gate + ["ray"] * 7, out_shape,
+                        interpret)
 
 
 @functools.lru_cache(maxsize=64)
@@ -636,16 +519,10 @@ def _compiled_render_call(kp: KernelPlan, iterations: int, eps: float,
                           ao_strength: float, ao_samples: int,
                           ao_delta: float, bounces: int,
                           per_ray_org: bool, black_ids, save_winner: bool,
-                          sat_skip: bool, tile_sublanes: int,
-                          num_tiles: int, num_prims: int, interpret: bool,
-                          raygen=None):
-    rows = num_tiles * tile_sublanes
-    block = (tile_sublanes, LANES)
-    ray_spec = pl.BlockSpec(block, lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((rows, LANES), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((rows, LANES), jnp.int32)
-
+                          sat_skip: bool, ray_block: int, num_blocks: int,
+                          interpret: bool, raygen=None):
+    f32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.float32)
+    i32 = jax.ShapeDtypeStruct((num_blocks * ray_block,), jnp.int32)
     kernel = functools.partial(_render_kernel, kp, iterations, eps,
                                offset_eps, saturation, fd_h, num_lights,
                                shadows, fused, analytic, colored, soft_k,
@@ -655,19 +532,12 @@ def _compiled_render_call(kp: KernelPlan, iterations: int, eps: float,
     out_shape = (f32, f32, f32, f32, f32) + (1 + bounces) * _shade_out_shapes(
         f32, i32, num_lights, colored, shadows and soft_k > 0.0,
         ao_strength > 0.0, save_winner) + bounces * (f32, f32, f32, f32, f32)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    gate_specs = [smem] if black_ids else []
-    org_specs = [ray_spec] * 3 if per_ray_org else [smem]
-    dir_specs = [smem] if raygen is not None else [ray_spec] * 3
-    return pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=([_tbl_spec(num_prims), smem] + gate_specs + org_specs
-                  + dir_specs),
-        out_specs=(ray_spec,) * len(out_shape),
-        out_shape=out_shape,
-        interpret=interpret,
-    )
+    gate = ["any"] if black_ids else []
+    org = ["ray"] * 3 if per_ray_org else ["any"]
+    dirs = ["any", "any"] if raygen is not None else ["ray"] * 3
+    return _kernel_call(kernel, num_blocks, ray_block,
+                        ["any", "any"] + gate + org + dirs, out_shape,
+                        interpret)
 
 
 def _unpack_shade_outs(outs, unprep, num_lights: int, colored: bool,
@@ -708,10 +578,9 @@ def black_skip_ids(plan: ScenePlan, cfg: RenderConfig):
     return ()
 
 
-def _serve_cam_rows(tables: SceneTables, cfg: RenderConfig,
-                    ray_base) -> jnp.ndarray:
-    """[3, 8] SMEM camera rows for the in-kernel raygen (_raygen_dirs):
-    row 0 = [pos xyz, focal w, focal h, chunk ray base, 0, 0];
+def _serve_cam_rows(tables: SceneTables, cfg: RenderConfig) -> jnp.ndarray:
+    """[3, 8] camera rows for the in-kernel raygen (_raygen_dirs):
+    row 0 = [pos xyz, focal w, focal h, 0, 0, 0];
     rows 1-2 = the camera rotation, row-major (R22 wraps to row 2)."""
     from ..core import camera as cam
 
@@ -719,17 +588,16 @@ def _serve_cam_rows(tables: SceneTables, cfg: RenderConfig,
     h = w / cfg.aspect_ratio
     Rm = cam.camera_rotation(jnp.asarray(tables.cam_direction),
                              jnp.asarray(tables.cam_up)).reshape(9)
-    base = jnp.asarray(ray_base, jnp.float32).reshape(())
     row0 = jnp.concatenate([
         jnp.asarray(tables.cam_position, jnp.float32).reshape(3),
-        jnp.stack([w, h, base]), jnp.zeros((2,), jnp.float32)])
+        jnp.stack([w, h]), jnp.zeros((3,), jnp.float32)])
     row12 = jnp.concatenate([Rm, jnp.zeros((7,), jnp.float32)])
     return jnp.concatenate([row0, row12]).reshape(3, 8)
 
 
 def serve_render_chunk(plan: ScenePlan, cfg: RenderConfig, tables,
                        raygen, ray_base, n_rays: int,
-                       interpret: bool) -> jnp.ndarray:
+                       interpret=None) -> jnp.ndarray:
     """Forward-only serving render of ``n_rays`` consecutive rays in the
     kernel's own layout, directions generated IN-kernel
     (RenderConfig.serve_raygen): colors [n_rays, 3].  PRIMAL ONLY — no
@@ -747,14 +615,14 @@ def serve_render_chunk(plan: ScenePlan, cfg: RenderConfig, tables,
 
 def pallas_render_rays(plan: ScenePlan, cfg: RenderConfig,
                        origin: jnp.ndarray, dirs: jnp.ndarray,
-                       tables: SceneTables, *, interpret: bool = False,
+                       tables: SceneTables, *, interpret=None,
                        save_winner: bool = False,
                        raygen=None, ray_base=None, n_rays=None):
     """Fully fused forward: dirs [R, 3], origin [3] or [R, 3] ->
     (p_hit [R,3], sd [R], converged [R], cidx [R], light [R], smask [R],
     sfac [R, L] | None, aofac [R] | None).  A [R, 3] origin makes every
     lane carry its own origin (arbitrary ray bundles / batched frames);
-    a [3] origin stays an SMEM broadcast (one fewer VMEM stream).
+    a [3] origin stays a scalar broadcast (three fewer ray streams).
 
     ``light`` already includes the soft-shadow / AO factors when those
     modes are on; ``sfac``/``aofac`` ride along only so the backward
@@ -785,18 +653,19 @@ def pallas_render_rays(plan: ScenePlan, cfg: RenderConfig,
     if raygen is not None:
         # serve fast path (RenderConfig.serve_raygen): directions are
         # computed IN the kernel from the ray index (_raygen_dirs); the
-        # cam operand replaces the three VMEM dirs streams.
+        # cam + ray-base operands replace the three dirs streams.
         assert dirs is None and n_rays is not None
         assert jnp.ndim(origin) == 1, "serve raygen is pinhole-only"
         R = int(n_rays)
-        num_tiles, prep, unprep = _tiling(R, cfg.tile_sublanes)
-        comps = [_serve_cam_rows(tables, cfg, ray_base)]
+        num_blocks, prep, unprep = _tiling(R, cfg.ray_block)
+        comps = [_serve_cam_rows(tables, cfg),
+                 jnp.asarray(ray_base, jnp.int32).reshape(1)]
     else:
         R = dirs.shape[0]
-        num_tiles, prep, unprep = _tiling(R, cfg.tile_sublanes)
+        num_blocks, prep, unprep = _tiling(R, cfg.ray_block)
         comps = [prep(dirs[:, a]) for a in range(3)]
     tbl = _build_table(tables, kp)
-    # [L, 8] SMEM rows: position xyz, pad, color rgb, pad.
+    # [L, 8] light rows: position xyz, pad, color rgb, pad.
     nL = tables.light_pos.shape[0]
     lights = jnp.concatenate(
         [jnp.asarray(tables.light_pos), jnp.zeros((nL, 1), jnp.float32),
@@ -810,7 +679,7 @@ def pallas_render_rays(plan: ScenePlan, cfg: RenderConfig,
         org_args = [jnp.asarray(origin, jnp.float32).reshape(3)]
 
     # Black-lane shadow skip (RenderConfig.shade_skip_black): static ids
-    # from compile-time colors + a runtime SMEM gate proving the live
+    # from compile-time colors + a runtime gate scalar proving the live
     # table rows are STILL black (fitting a color flips the gate to 0 and
     # the kernel behaves bitwise as if the feature were off).
     black_ids = black_skip_ids(plan, cfg) if bounces == 0 else ()
@@ -832,8 +701,7 @@ def pallas_render_rays(plan: ScenePlan, cfg: RenderConfig,
             cfg.normal_mode == "analytic", colored, cfg.soft_shadow_k,
             cfg.ao_strength, cfg.ao_samples, cfg.ao_delta, black_ids,
             save_winner, cfg.shadow_sat_skip,
-            cfg.tile_sublanes, num_tiles, int(tables.prim_pos.shape[0]),
-            interpret)
+            cfg.ray_block, num_blocks, resolve_interpret(interpret))
         pc = [prep(p[:, a]) for a in range(3)]
         outs = shade(tbl, lights, *gate_args, *pc, prep(sd), *comps)
         cidx, light, smask, sfac, aofac, wres = _unpack_shade_outs(
@@ -847,8 +715,7 @@ def pallas_render_rays(plan: ScenePlan, cfg: RenderConfig,
         cfg.fused_generators, cfg.normal_mode == "analytic", colored,
         cfg.soft_shadow_k, cfg.ao_strength, cfg.ao_samples, cfg.ao_delta,
         bounces, per_ray_org, black_ids, save_winner, cfg.shadow_sat_skip,
-        cfg.tile_sublanes,
-        num_tiles, int(tables.prim_pos.shape[0]), interpret, raygen)
+        cfg.ray_block, num_blocks, resolve_interpret(interpret), raygen)
     outs = call(tbl, lights, *gate_args, *org_args, *comps)
     px, py, pz, sd, done = outs[:5]
     n_per = _num_shade_refs(L, colored, soft, ao, save_winner)
@@ -895,20 +762,20 @@ def _two_phase_march(plan: ScenePlan, cfg: RenderConfig, origin, dirs,
     R = dirs.shape[0]
     k1 = cfg.two_phase_k1
     o = jnp.broadcast_to(origin, dirs.shape)
-    res1 = pallas_march(kp, k1, cfg.surface_precision, cfg.tile_sublanes,
+    res1 = pallas_march(kp, k1, cfg.surface_precision, cfg.ray_block,
                         o, dirs, tables, fused=cfg.fused_generators,
                         interpret=interpret)
     # NOTE primary marches have no tmax, so done == converged here and an
     # unconverged ray is exactly "still marching".
     unconv = jnp.logical_not(res1.converged)
-    cap = max(R // _PHASE2_CAP_FRAC, min(R, cfg.tile_sublanes * 128))
+    cap = max(R // _PHASE2_CAP_FRAC, min(R, cfg.ray_block))
     # Stable sort: unconverged lanes first, original order within groups.
     order = jnp.argsort(res1.converged, stable=True)
     sel = order[:cap]
     sel_active = unconv[sel]
 
     res2 = pallas_march(kp, cfg.iterations - k1, cfg.surface_precision,
-                        cfg.tile_sublanes, res1.position[sel], dirs[sel],
+                        cfg.ray_block, res1.position[sel], dirs[sel],
                         tables, fused=cfg.fused_generators,
                         interpret=interpret)
     # merge: phase-2 results only for lanes that were actually unconverged
@@ -924,7 +791,7 @@ def _two_phase_march(plan: ScenePlan, cfg: RenderConfig, origin, dirs,
         # > cap rays unconverged at K1: re-march everything from the origin
         # with the full budget (the plain exact path).
         res = pallas_march(kp, cfg.iterations, cfg.surface_precision,
-                           cfg.tile_sublanes, o, dirs, tables,
+                           cfg.ray_block, o, dirs, tables,
                            fused=cfg.fused_generators, interpret=interpret)
         return res.position, res.sd, res.converged
 
@@ -993,9 +860,7 @@ def _replay_shade(plan, cfg, interpret, tables, p, cidx, smask,
     sdf = _sd_fn(plan, cfg)
     sd_one = lambda q: sdf(tables, q)
 
-    p_color_color = jnp.where(
-        (cidx >= 0)[..., None],
-        jnp.asarray(tables.prim_color)[jnp.clip(cidx, 0, None)], 0.0)
+    p_color_color = take_rows(jnp.asarray(tables.prim_color), cidx)
 
     # Differentiate the SAME normal estimator the forward kernel evaluated
     # (the analytic winner gradient == reverse-mode through the sd field
@@ -1028,7 +893,7 @@ def _blend_bounces(plan, cfg, tables, cidx, light, bounce_shades):
             if cfg.fused_generators and plan.kernel is not None else None)
 
     def col(ci):
-        # winner colors by one-hot MXU contraction (misses -> zeros), not
+        # winner colors by one-hot matmul contraction (misses -> zeros), not
         # a per-ray row gather — the gather costs more than the blend it
         # feeds, and its VJP is a scatter (scene_vjp._gather_rows note)
         return _gather_rows(ci.reshape(-1), jnp.asarray(tables.prim_color),
@@ -1120,10 +985,10 @@ def _exact_fd_bwd(plan, cfg, residuals, g_out, interpret):
     # 1. shading replay from the FD-gradient primal (normalize + Lambert +
     # clamp are plain jnp — jax.vjp transposes them; the sd-field parts
     # are chained by hand below).  The color gather stays OUTSIDE the vjp
-    # so its transpose routes through the MXU segment-add instead of an
+    # so its transpose routes through the one-hot segment-add instead of an
     # XLA scatter (scene_vjp._segment_add rationale).
     colored = plan.colored_lights
-    # winner colors by one-hot MXU contraction, not a per-ray row gather
+    # winner colors by one-hot matmul contraction, not a per-ray row gather
     # (see _exact_analytic_bwd)
     from .scene_vjp import _gather_rows
     color_p = _gather_rows(cidx.reshape(-1),
@@ -1194,9 +1059,9 @@ def _exact_analytic_bwd(plan, cfg, residuals, g_out, interpret):
 
     # 1. shading replay from the analytic-gradient primal (see
     # _exact_fd_bwd step 1 — identical structure, g0 in place of gfd).
-    # Winner colors by one-hot MXU contraction, NOT jnp row gather (the
-    # per-ray gather costs more than the reduction it feeds — the r3
-    # lesson that shaped scene_vjp; misses return zeros).
+    # Winner colors by one-hot contraction, NOT jnp row gather (a
+    # per-ray gather can cost more than the reduction it feeds; misses
+    # return zeros).
     color_p = _gather_rows(cidx.reshape(-1),
                            jnp.asarray(tables.prim_color)).reshape(
                                cidx.shape + (3,))
@@ -1243,8 +1108,7 @@ def _fused_analytic_bwd(plan, cfg, residuals, g_out, interpret):
     """Backward for the FUSED-generator analytic-normal path (the bench
     headline regime) with ONE kernel launch total, replacing the jnp
     replay that re-evaluated the folded field several times per ray
-    (normal_analytic is reverse-over-reverse of scene_sd_fused; measured
-    ~56% of the fwd+bwd frame).  Identical structure to
+    (normal_analytic is reverse-over-reverse of scene_sd_fused).  Identical structure to
     _exact_analytic_bwd, with the fused twins: the combined winner kernel
     runs on the FOLDED field and may report extended carve-winner ids;
     theta algebra and the normal's Hessian chain dispatch on the winner
@@ -1265,7 +1129,7 @@ def _fused_analytic_bwd(plan, cfg, residuals, g_out, interpret):
     else:
         sd0, widx0, g0 = fused_winner_eval(plan, cfg, p, tables, interpret)
 
-    # winner colors by one-hot MXU contraction over the ~10 fused color
+    # winner colors by one-hot matmul contraction over the ~10 fused color
     # candidates (see _exact_analytic_bwd — never a per-ray row gather)
     color_p = _gather_rows(cidx.reshape(-1),
                            jnp.asarray(tables.prim_color),
@@ -1393,10 +1257,7 @@ def _reflect_bwd(plan, cfg, interpret, residuals, g_out):
             n = sh.normalize(g)
             lits.append(_lambert_replay(plan, cfg, tables_, ph, n, smask_b,
                                         sfac_b, aofac_b))
-            cols.append(jnp.where(
-                (cidx_b >= 0)[..., None],
-                jnp.asarray(tables_.prim_color)[jnp.clip(cidx_b, 0, None)],
-                0.0))
+            cols.append(take_rows(jnp.asarray(tables_.prim_color), cidx_b))
             if b + 1 < len(anchors):
                 ddot = jnp.sum(d * n, axis=-1, keepdims=True)
                 d = d - 2.0 * ddot * n

@@ -5,13 +5,13 @@ NCCL/MPI/sockets — its only transport is GL buffer upload/readback).  This
 module is the multi-host story the north star mandates, built on
 ``jax.distributed`` + GSPMD:
 
-  * ``initialize`` — one barrier at process start (the only DCN
-    rendezvous); after it, ``jax.devices()`` spans the whole slice and the
-    1-D ray mesh from parallel.sharded covers every chip, so gradient
-    psums ride ICI.
+  * ``initialize`` — one barrier at process start (the only cross-host
+    rendezvous); after it, ``jax.devices()`` spans every process and the
+    1-D ray mesh from parallel.sharded covers every card, so gradient
+    psums ride the collective library (NCCL on GPUs).
   * ``gather_image`` — the only cross-host data movement in the pipeline:
     assembling the row-sharded frame on host 0 at save time
-    (multihost_utils.process_allgather over DCN), the analogue of the
+    (multihost_utils.process_allgather), the analogue of the
     reference's glGetTexImage readback (render.cpp:474).
 
 Single-process usage is zero-cost: every helper degrades to a no-op.
@@ -51,7 +51,7 @@ def gather_image(image) -> np.ndarray:
     """Gather a row-sharded global image to every host -> np.ndarray.
 
     For single-process, just device_get.  For multi-host, allgather the
-    addressable shards over DCN (save-time only — the hot loop never
+    addressable shards across hosts (save-time only — the hot loop never
     crosses hosts)."""
     if jax.process_count() == 1:
         return np.asarray(jax.device_get(image))

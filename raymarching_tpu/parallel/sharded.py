@@ -4,12 +4,13 @@ The reference is a single-process, single-node program (SURVEY §2: OpenMP
 threads + one GL dispatch are its only parallelism).  This module is the new
 capability the north star mandates: data parallelism over RAYS across a
 `jax.sharding.Mesh`, the direct analogue of the reference's
-pixel-parallelism, scaled over ICI instead of OpenMP threads.
+pixel-parallelism, scaled over the cards of a host (NVLink, all to all)
+instead of OpenMP threads.
 
 Design (SURVEY §5, "How to Scale Your Model" recipe):
-  * 1-D mesh over the ``rays`` axis (multi-host slices simply contribute
-    more devices to the same axis; rays are independent, so no halo
-    exchange, no KV rotation — easier than ring attention).
+  * 1-D mesh over the ``rays`` axis (every card reaches every other at
+    the same rate, so the mesh follows the algorithm alone; rays are
+    independent, so no halo exchange, no KV rotation).
   * Image rows are the sharded dimension: each device owns H/n contiguous
     rows of the SSAA ray grid.  Scene parameter tables are REPLICATED
     (a few KB — the analogue of the reference broadcasting its SSBOs to
@@ -39,10 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import RenderConfig
 from ..scene.compile import ScenePlan, SceneTables
@@ -53,9 +51,9 @@ RAYS = "rays"
 
 
 def make_mesh(num_devices: Optional[int] = None, axis: str = RAYS) -> Mesh:
-    """1-D mesh over the ray axis.  On a multi-host slice, ``jax.devices()``
-    already enumerates every chip in the slice, so the same 1-D mesh spans
-    hosts; ICI carries the gradient psum, DCN only the init barrier."""
+    """1-D mesh over the ray axis.  In a multi-process run
+    ``jax.devices()`` enumerates every process's devices, so the same 1-D
+    mesh spans hosts; the gradient psum is the only collective."""
     devices = jax.devices()
     if num_devices is not None:
         devices = devices[:num_devices]
@@ -69,8 +67,8 @@ def make_mesh_2d(hosts: int, chips: int) -> Mesh:
     independent; there is no tensor/pipeline/expert dimension in a 428-
     float-parameter scene, SURVEY §2 parallelism table), so a multi-host
     topology maps both mesh axes onto the ray axis: the outer axis keeps
-    each host's rows local (DCN never carries ray data) while the inner
-    axis spreads rows over each host's chips (ICI).  Use
+    each host's rows local (the network between hosts never carries ray
+    data) while the inner axis spreads rows over each host's cards.  Use
     ``PartitionSpec(("hosts", "chips"))`` — parallel.render_sharded does
     this automatically when handed a 2-D mesh."""
     devices = jax.devices()[:hosts * chips]
@@ -100,7 +98,7 @@ def _check_rows(cfg: RenderConfig, mesh: Mesh) -> int:
 def render_sharded(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
                    mesh: Mesh, *, differentiable: bool = False,
                    backend: str = "ref",
-                   interpret: bool = False) -> jnp.ndarray:
+                   interpret: Optional[bool] = None) -> jnp.ndarray:
     """Render with image rows sharded over the mesh -> [H, W, 3] (sharded).
 
     ``backend`` selects the per-device march implementation (api backends);
@@ -143,7 +141,7 @@ def render_sharded(plan: ScenePlan, tables: SceneTables, cfg: RenderConfig,
 def render_rays_sharded(plan: ScenePlan, tables: SceneTables,
                         origins: jnp.ndarray, dirs: jnp.ndarray,
                         cfg: RenderConfig, mesh: Mesh, *,
-                        interpret: bool = False) -> jnp.ndarray:
+                        interpret: Optional[bool] = None) -> jnp.ndarray:
     """Arbitrary ray bundles sharded over the mesh -> [R, 3] colors.
 
     The multi-chip twin of ``api.render_rays`` (the camera-grid-free entry
@@ -215,7 +213,7 @@ def render_sharded_gspmd(plan: ScenePlan, tables: SceneTables,
 
 def mse_loss(plan: ScenePlan, tables: SceneTables, target: jnp.ndarray,
              cfg: RenderConfig, mesh: Mesh,
-             backend: str = "ref", interpret: bool = False) -> jnp.ndarray:
+             backend: str = "ref", interpret: Optional[bool] = None) -> jnp.ndarray:
     img = render_sharded(plan, tables, cfg, mesh, differentiable=True,
                          backend=backend, interpret=interpret)
     return jnp.mean((img - target) ** 2)
@@ -223,13 +221,14 @@ def mse_loss(plan: ScenePlan, tables: SceneTables, target: jnp.ndarray,
 
 def train_step(plan: ScenePlan, tables: SceneTables, target: jnp.ndarray,
                cfg: RenderConfig, mesh: Mesh, lr: float = 1e-2,
-               backend: str = "ref", interpret: bool = False):
+               backend: str = "ref", interpret: Optional[bool] = None):
     """One SGD step on the scene parameters against a target image.
 
     Returns (loss, updated tables).  Differentiating through
     ``render_sharded`` transposes the shard_map: per-device partial
-    gradients of the replicated tables are psum-reduced over ICI.
-    ``interpret`` runs the Pallas kernels in interpret mode (CPU meshes).
+    gradients of the replicated tables are psum-reduced over the mesh.
+    ``interpret=None`` runs the kernels in the Pallas interpreter exactly
+    on CPU meshes.
     """
     loss, grads = jax.value_and_grad(
         lambda t: mse_loss(plan, t, target, cfg, mesh, backend,

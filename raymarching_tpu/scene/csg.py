@@ -4,7 +4,7 @@ Re-design of the reference's pointer-based polymorphic body tree
 (``source/body.cpp`` + ``source/include/body.h``) as plain Python dataclasses
 used only at scene-construction time.  Nothing here is traced by JAX: the
 tree is compiled to flat device tables by :mod:`raymarching_tpu.scene.compile`
-before any rendering happens (the TPU analogue of the reference's SSBO
+before any rendering happens (the analogue of the reference's SSBO
 flattening, render.cpp:246-366 — except we do it once, ahead of time, instead
 of interpreting the tree with a per-thread stack on the device).
 

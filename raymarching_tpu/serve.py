@@ -270,6 +270,8 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--backend", default="auto")
     args = ap.parse_args(argv)
+    from .utils.cache import setup_compile_cache
+    setup_compile_cache()
 
     server = ThreadingHTTPServer((args.host, args.port),
                                  _make_handler(args.backend))

@@ -7,9 +7,9 @@ so the analogous tooling is:
 
   * NaN/Inf checking on pytrees and images (``check_finite``), plus the
     global ``jax_debug_nans`` switch;
-  * Pallas interpret mode as the kernel "sanitizer" — the same kernel code
-    executed by the reference interpreter instead of Mosaic
-    (``interpret_mode``);
+  * Pallas interpret mode as the kernel "sanitizer" — every kernel entry
+    point takes ``interpret=`` and runs the same kernel code in the
+    interpreter on the CPU (ops.pallas_march.resolve_interpret);
   * ``print_v3`` — the spiritual successor of debug::print, but traceable
     (works under jit via jax.debug.print).
 """
@@ -43,15 +43,6 @@ def debug_nans(enable: bool = True):
         yield
     finally:
         jax.config.update("jax_debug_nans", prev)
-
-
-@contextlib.contextmanager
-def interpret_mode():
-    """Force Pallas kernels into interpreter mode (kernel sanitizer)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def print_v3(label: str, v) -> None:

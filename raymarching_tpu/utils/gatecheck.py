@@ -1,4 +1,4 @@
-"""Fused-gate offender classification (r5 verdict item #5).
+"""Fused-gate offender classification.
 
 The fused-generator fast mode folds Menger/DeathStar carves into
 conservative closed-form distances: same zero set, different fold
@@ -20,8 +20,6 @@ difference exceeds the gate threshold) against the exact path's own AOVs
                        light's shadowed-sample fraction is partial or
                        differs from a 4-neighbor — cast-shadow edges are
                        LIGHT discontinuities invisible to objid/depth
-                       (the r5 demo gate's 18 "interior" offenders were
-                       one cast-shadow line across the floor)
                     OR (with ``normal``) a surface CREASE: the normal
                        turns > ``crease_deg`` to a 4-neighbor — where
                        two faces of one primitive meet, the FD and
@@ -31,9 +29,10 @@ difference exceeds the gate threshold) against the exact path's own AOVs
   … dilated by ``dilate`` pixels (an offender within 1 px of an edge is
   edge-class: the fused image's edge lands one sample over).
 
-Pure numpy on host — runs identically under the bench's TPU renders and
-the CPU interpret-mode test (tests/test_gate_offenders.py pins it on the
-demo scene).
+The classification is pure numpy on host — it runs identically under the
+bench's GPU renders and the CPU interpret-mode test
+(tests/test_gate_offenders.py pins it on the demo scene).  ``fused_gate``
+renders both regimes and applies it.
 """
 
 from __future__ import annotations
@@ -126,3 +125,57 @@ def classify_offenders(diff: np.ndarray, thresh: float,
         "interior_yx": [[int(y), int(x)] for y, x in interior[:16]],
         "all_on_silhouette": bool(n == on_sil),
     }
+
+
+def fused_gate(plan, tables, cfg, backend):
+    """Allclose gate for the fused approximation at the caller's footprint
+    (bench.py: the headline 512² SSAA2 with the measured chunking): one
+    full-frame render per regime, worst pixel recorded; >= 99.5% of
+    pixels within 5e-3 and every offender on a discontinuity (an
+    interior offender is a bug).  Returns (ok, stats)."""
+    import jax
+
+    from ..api import render_aovs, render_tables
+
+    exact = jax.jit(lambda t: render_tables(plan, t, cfg, backend=backend))
+    fcfg = cfg.replace(fused_generators=True, normal_mode="analytic")
+    fused = jax.jit(lambda t: render_tables(plan, t, fcfg, backend=backend))
+    a = np.asarray(exact(tables))
+    b = np.asarray(fused(tables))
+    diff = np.abs(a - b).max(axis=-1)
+    thresh = 5e-3
+    frac = float((diff < thresh).mean())
+    wy, wx = np.unravel_index(int(diff.argmax()), diff.shape)
+    stats = {
+        "gate_resolution": f"{cfg.width}x{cfg.height}_ssaa{cfg.ssaa}",
+        "gate_threshold": thresh,
+        "gate_frac_within": round(frac, 6),
+        "gate_max_diff": round(float(diff.max()), 6),
+        "gate_worst_pixel_yx": [int(wy), int(wx)],
+        "gate_pixels_over": int((diff >= thresh).sum()),
+    }
+    # Classify every offender against the exact render's own geometry: a
+    # fused-vs-exact mismatch is benign only when it
+    # sits on a silhouette/depth discontinuity (fold-association ulps
+    # flipping a marginal SSAA sample); an interior offender is a bug.
+    if stats["gate_pixels_over"]:
+        aovs = jax.jit(lambda t: render_aovs(plan, t, cfg))(tables)
+        cls = classify_offenders(diff, thresh,
+                                 np.asarray(aovs["objid"]),
+                                 np.asarray(aovs["depth"]),
+                                 np.asarray(aovs["hit"]),
+                                 shadow=np.asarray(aovs["shadow"]),
+                                 normal=np.asarray(aovs["normal"]))
+        # BOOL all-clear + separate count: a mixed bool/int field reads
+        # a nonzero count as truthy all-clear
+        stats["gate_offenders_on_silhouette"] = cls["all_on_silhouette"]
+        stats["gate_offenders_on_silhouette_count"] = \
+            cls["offenders_on_silhouette"]
+        stats["gate_offenders_interior"] = cls["offenders_interior"]
+        if cls["interior_yx"]:
+            stats["gate_interior_yx"] = cls["interior_yx"]
+    else:
+        stats["gate_offenders_on_silhouette"] = True
+        stats["gate_offenders_on_silhouette_count"] = 0
+        stats["gate_offenders_interior"] = 0
+    return frac > 0.995 and stats["gate_offenders_interior"] == 0, stats

@@ -1,7 +1,7 @@
 """Failure detection: deterministic per-tile re-run (SURVEY §5 row).
 
 The reference's failure story is "errors print and execution continues"
-(render.cpp:417-425).  On a TPU fleet the failure mode that actually bites
+(render.cpp:417-425).  On an accelerator fleet the failure mode that bites
 is *silent* data corruption — a flaky chip, a bad HBM row, a miscompiled
 kernel — which no exception ever reports.  The standard defence (used by
 large-scale training fleets) is redundant recomputation: the renderer is a

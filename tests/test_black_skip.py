@@ -20,7 +20,7 @@ import raymarching_tpu as rt
 from raymarching_tpu.api import render_tables
 
 CFG = rt.RenderConfig(width=64, height=36, ssaa=1, iterations=200,
-                      tile_sublanes=8)
+                      ray_block=1024)
 
 
 @pytest.fixture(scope="module")

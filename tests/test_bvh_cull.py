@@ -29,7 +29,7 @@ from raymarching_tpu.scene.csg import (Box, Cross, ListNode, Mode, Sphere,
                                        bounds)
 from raymarching_tpu.scene.objects import Camera, Light
 
-TILE = 8
+TILE = 1024
 
 
 def _scatter_world(n_spheres=80, n_boxes=70, seed=0):

@@ -1,12 +1,11 @@
-"""Cost-ordered tile scheduling (core.order.row_cost_perm / row_permuters
-+ api.plan_cost_order): bit-exact images under any sublane-row
+"""Cost-ordered block scheduling (core.order.row_cost_perm / row_permuters
++ api.plan_cost_order): bit-exact images under any 128-ray row
 permutation, scatter-free permutation VJPs, and gradient parity.
 
-The scheduling attacks the straggler bound the roofline measures (a
-(tile_sublanes, 128) tile marches until its slowest lane converges — the
-TPU analogue of the warp divergence the reference's GLSL kernel eats,
-shader.comp:288-297): rows sorted by predicted cost make tiles
-cost-homogeneous.  Correctness must be UNCONDITIONAL on the permutation —
+The scheduling attacks the straggler bound (a kernel ray block marches
+until its slowest lane converges — the analogue of the warp divergence
+the reference's GLSL kernel eats, shader.comp:288-297): rows sorted by
+predicted cost make blocks cost-homogeneous.  Correctness must be UNCONDITIONAL on the permutation —
 a stale or adversarial perm may only change speed.
 """
 
@@ -17,7 +16,7 @@ import pytest
 
 from raymarching_tpu import RenderConfig
 from raymarching_tpu.api import plan_cost_order, render_tables
-from raymarching_tpu.core.order import LANES, row_cost_perm, row_permuters
+from raymarching_tpu.core.order import PERM_ROW as LANES, row_cost_perm, row_permuters
 from raymarching_tpu.scene.compile import compile_tree
 from raymarching_tpu.scene.csg import Box, ListNode, Mode, Sphere, bounds
 from raymarching_tpu.scene.generators import menger_sponge

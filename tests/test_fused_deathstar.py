@@ -39,7 +39,7 @@ def _world():
 
 
 def _sd(plan, tables, p, fused, analytic=False):
-    sd, _, g = pallas_surface_eval(plan.kernel, 1e-3, 8, p, tables,
+    sd, _, g = pallas_surface_eval(plan.kernel, 1e-3, 1024, p, tables,
                                    with_color=False, with_normal=analytic,
                                    fused=fused, analytic=analytic,
                                    interpret=True)

@@ -32,7 +32,7 @@ def _world(iters=2):
 
 
 def _sd(plan, tables, p, fused):
-    sd, _, _ = pallas_surface_eval(plan.kernel, 1e-3, 8, p, tables,
+    sd, _, _ = pallas_surface_eval(plan.kernel, 1e-3, 1024, p, tables,
                                    with_color=False, with_normal=False,
                                    fused=fused, interpret=True)
     return np.asarray(sd)

@@ -88,7 +88,7 @@ def test_fuzz_all_layers_agree(seed, depth):
     # pallas kernel path (interpret) — EVERY tree: two-level normal form
     # for depth<=2, generic post-order evaluator for deeper nests
     sd_p, cidx, g = pallas_surface_eval(
-        kernel_key(plan), 1e-3, 8, pts, tables,
+        kernel_key(plan), 1e-3, 1024, pts, tables,
         with_color=True, with_normal=False, interpret=True)
     # rtol: deep random trees legitimately accumulate tens of f32 ulps
     # between the jnp fold and the kernel fold (different association);
@@ -131,10 +131,10 @@ def test_fuzz_fused_generators_match_exact(seed):
     assert "menger" in kinds and "deathstar" in kinds
     pts = rng.uniform(-9, 9, size=(512, 3)).astype(np.float32)
 
-    sd_e, _, _ = pallas_surface_eval(kernel_key(plan), 1e-3, 8, pts,
+    sd_e, _, _ = pallas_surface_eval(kernel_key(plan), 1e-3, 1024, pts,
                                      tables, with_color=False,
                                      with_normal=False, interpret=True)
-    sd_f, _, _ = pallas_surface_eval(kernel_key(plan), 1e-3, 8, pts,
+    sd_f, _, _ = pallas_surface_eval(kernel_key(plan), 1e-3, 1024, pts,
                                      tables, with_color=False,
                                      with_normal=False, fused=True,
                                      interpret=True)

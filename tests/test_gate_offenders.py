@@ -9,7 +9,7 @@ An interior offender would mean the folded field is wrong ON the surface.
 These tests pin (a) the mask/classifier logic on synthetic geometry where
 the right answer is computable by hand, and (b) the real classification on
 the demo scene's fused-vs-exact diff (interpret-mode mega, small footprint
-— same scene the TPU bench gates at 512²)."""
+— same scene the bench gates at 512²)."""
 
 import numpy as np
 import pytest
@@ -111,12 +111,12 @@ def test_depth_discontinuity_detected():
 def test_demo_scene_offenders_on_silhouette():
     """The real gate, shrunk: fused-vs-exact diff of the demo scene at
     64x36 SSAA2 (interpret mega), classified against the exact AOVs.  The
-    claim the TPU bench records — every offender is silhouette-class —
+    claim the bench records — every offender is silhouette-class —
     must hold here too; and the classifier must not be vacuous (the mask
     covers a small minority of the frame)."""
     plan, tables = rt.compile_scene(rt.load_scene("scenes/demo.txt"))
     cfg = rt.RenderConfig(width=64, height=36, ssaa=2, iterations=300,
-                          tile_sublanes=8, normal_mode="fd")
+                          ray_block=1024, normal_mode="fd")
     exact = np.asarray(render_tables(plan, tables, cfg, backend="mega",
                                      interpret=True))
     fused = np.asarray(render_tables(

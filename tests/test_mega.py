@@ -320,13 +320,13 @@ def test_effective_chunk_caps_map_length():
     from raymarching_tpu import RenderConfig
     from raymarching_tpu.api import _MAX_CHUNKS, _effective_chunk
 
-    cfg = RenderConfig(ray_chunk=65536, tile_sublanes=32)
+    cfg = RenderConfig(ray_chunk=65536, ray_block=128)
     # config5's shape: 9.4M rays / 65536 = 144 chunks -> coarsened
     R = 1024 * 1024 * 9
     chunk = _effective_chunk(cfg, R)
     assert chunk >= 65536
     assert -(-R // chunk) <= _MAX_CHUNKS
-    assert chunk % (cfg.tile_sublanes * 128) == 0
+    assert chunk % cfg.ray_block == 0
     # small renders keep the caller's granule exactly
     assert _effective_chunk(cfg, 8 * 65536) == 65536
     # unchunked passes through

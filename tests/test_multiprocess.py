@@ -1,7 +1,7 @@
 """Multi-process (multi-host model) validation: two real OS processes form
 a jax.distributed cluster on CPU, render a row-sharded frame across the
-process boundary, and gather it — exercising the exact code paths a TPU
-pod slice uses (distributed.initialize, cross-process mesh, DCN-path
+process boundary, and gather it — exercising the exact code paths a
+multi-host run uses (distributed.initialize, cross-process mesh,
 process_allgather at save time)."""
 
 import socket

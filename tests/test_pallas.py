@@ -1,6 +1,7 @@
 """Pallas march kernel vs the jnp oracle (interpret mode on CPU — the
 kernel-equivalence rung of the test pyramid, SURVEY §4).  The same kernel
-code runs compiled on real TPUs; interpret mode validates semantics."""
+code runs compiled on the GPU (Triton route); interpret mode validates
+semantics."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +20,7 @@ from raymarching_tpu.scene.generators import death_star, menger_sponge
 from raymarching_tpu.scene.objects import Camera, Light
 
 ITER = 60
-CFG = RenderConfig(iterations=ITER, tile_sublanes=8)
+CFG = RenderConfig(iterations=ITER, ray_block=1024)
 
 
 def _rays(n, seed=0, spread=1.0):
@@ -144,7 +145,7 @@ def test_march_step_counters():
     tree = ListNode(Mode.UNION, [bounds(40.0), Sphere((0, 0, -6), 2.0)])
     plan, tables = compile_tree(tree, [], Camera())
     o, d = _rays(96, seed=9)
-    res_p, steps_p = pallas_march(plan.kernel, ITER, 1e-3, 8, o, d, tables,
+    res_p, steps_p = pallas_march(plan.kernel, ITER, 1e-3, 1024, o, d, tables,
                                   with_steps=True, interpret=True)
     res_j, steps_j = march_profile(
         lambda p: scene_sd(plan, tables, p), o, d, ITER, 1e-3)
@@ -400,8 +401,8 @@ class TestMengerLattice:
         kp_plain = dataclasses.replace(kp, groups=tuple(
             dataclasses.replace(g, lattice=None) for g in kp.groups))
         o, d = _rays(512, seed=11, spread=4.0)
-        r1 = pallas_march(kp, ITER, 1e-3, 8, o, d, tables, interpret=True)
-        r2 = pallas_march(kp_plain, ITER, 1e-3, 8, o, d, tables,
+        r1 = pallas_march(kp, ITER, 1e-3, 1024, o, d, tables, interpret=True)
+        r2 = pallas_march(kp_plain, ITER, 1e-3, 1024, o, d, tables,
                           interpret=True)
         np.testing.assert_array_equal(np.asarray(r1.position),
                                       np.asarray(r2.position))
@@ -414,8 +415,8 @@ class TestMengerLattice:
         pp[g.start + 5, 0] += 0.25
         moved = tables._replace(prim_pos=pp)
         assert float(lattice_ok(kp, moved)) == 0.0
-        r3 = pallas_march(kp, ITER, 1e-3, 8, o, d, moved, interpret=True)
-        r4 = pallas_march(kp_plain, ITER, 1e-3, 8, o, d, moved,
+        r3 = pallas_march(kp, ITER, 1e-3, 1024, o, d, moved, interpret=True)
+        r4 = pallas_march(kp_plain, ITER, 1e-3, 1024, o, d, moved,
                           interpret=True)
         np.testing.assert_array_equal(np.asarray(r3.sd), np.asarray(r4.sd))
         np.testing.assert_array_equal(np.asarray(r3.position),

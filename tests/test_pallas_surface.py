@@ -38,7 +38,7 @@ def _pts(n=200, seed=0):
 def test_surface_eval_color_index_matches_oracle():
     plan, tables = _world()
     p = _pts()
-    sd, cidx, _ = pallas_surface_eval(plan.kernel, 1e-3, 8, p, tables,
+    sd, cidx, _ = pallas_surface_eval(plan.kernel, 1e-3, 1024, p, tables,
                                       with_color=True, with_normal=False,
                                       interpret=True)
     sd_ref, color_ref = scene_surface(plan, tables, p)
@@ -53,7 +53,7 @@ def test_surface_eval_color_index_matches_oracle():
 def test_surface_eval_fd_normal_matches_oracle():
     plan, tables = _world()
     p = _pts(seed=1)
-    _, _, g = pallas_surface_eval(plan.kernel, 1e-3, 8, p, tables,
+    _, _, g = pallas_surface_eval(plan.kernel, 1e-3, 1024, p, tables,
                                   with_color=False, with_normal=True,
                                   interpret=True)
     sd_fn = lambda q: scene_sd(plan, tables, q)

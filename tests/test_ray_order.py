@@ -80,7 +80,7 @@ def demo():
 
 
 CFG = rt.RenderConfig(width=64, height=36, ssaa=1, iterations=200,
-                      tile_sublanes=8)
+                      ray_block=1024)
 
 
 class TestBitExactness:

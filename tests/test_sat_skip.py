@@ -36,7 +36,7 @@ Sphere -2.0 -0.5 -2.5 0.6
 """
 
 CFG = rt.RenderConfig(width=64, height=48, ssaa=1, iterations=250,
-                      tile_sublanes=8)
+                      ray_block=1024)
 
 
 @pytest.fixture(scope="module")

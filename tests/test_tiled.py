@@ -47,7 +47,7 @@ def test_tiled_blocks_are_self_consistent(demo):
 @pytest.mark.slow
 def test_tiled_matches_whole_frame_mega_interpret(demo):
     plan, tables = demo
-    cfg = CFG.replace(tile_sublanes=8)
+    cfg = CFG.replace(ray_block=1024)
     whole = np.asarray(render_tables(plan, tables, cfg, backend="mega",
                                      interpret=True))
     tiled = render_tiled(plan, tables, cfg, row_block=16, backend="mega",
